@@ -1,0 +1,128 @@
+"""The port's VITS layers against `tpu_tts` on the same weights and inputs (CPU, f32).
+
+Tolerances: text encoder 1e-5, flow reverse 1e-5, SDP reverse `logw` 1e-4
+(the spline's softmax/cumsum/sqrt chain is summed in another order),
+`generate_path` exact. Also: the port imports nothing of JAX or `tpu_tts`,
+and asking for CUDA without it raises.
+"""
+
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.torch_port_common import jax_model, max_err, port_model
+from tpu_tts.ops.helpers import generate_path as jax_generate_path
+from tpu_tts_torch.ops.helpers import generate_path
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def models():
+    return jax_model(), port_model()
+
+
+def _tokens(B=2, T=11, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(1, 40, (B, T)).astype(np.int32)
+    lengths = np.array([T, T - 4][:B], dtype=np.int32)
+    return x, lengths
+
+
+def _jax_apply(model, fn, *args, **kw):
+    run = jax.jit(lambda p, *a: model.net.apply({"params": p}, *a, method=fn, **kw))
+    return run(model.params["generator"], *args)
+
+
+def test_generate_path_exact():
+    rng = np.random.default_rng(1)
+    dur = rng.integers(0, 4, (2, 7)).astype(np.float32)
+    mask = (rng.uniform(size=(2, 7, 20)) > 0.2).astype(np.float32)
+    ref = np.asarray(jax_generate_path(jnp.asarray(dur), jnp.asarray(mask)))
+    got = generate_path(torch.from_numpy(dur), torch.from_numpy(mask)).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_text_encoder_matches_jax(models):
+    jm, pm = models
+    x, xl = _tokens()
+    ref = _jax_apply(jm, lambda m, x, xl: m.text_encoder(x, xl), jnp.asarray(x), jnp.asarray(xl))
+    with torch.no_grad():
+        got = pm.net.text_encoder(torch.from_numpy(x).long(), torch.from_numpy(xl).long())
+    for r, g in zip(ref, got):  # h, m, logs, x_mask
+        assert max_err(g.transpose(1, 2), r) <= 1e-5
+
+
+def test_sdp_reverse_logw_matches_jax(models):
+    jm, pm = models
+    x, xl = _tokens(seed=2)
+
+    def logw(m, x, xl):
+        h, _, _, mask = m.text_encoder(x, xl)
+        return m.duration_predictor(h, mask, reverse=True, noise_scale=0.0)
+
+    ref = _jax_apply(jm, logw, jnp.asarray(x), jnp.asarray(xl), rngs={"sdp": jax.random.PRNGKey(0)})
+    with torch.no_grad():
+        h, _, _, mask = pm.net.text_encoder(torch.from_numpy(x).long(), torch.from_numpy(xl).long())
+        got = pm.net.duration_predictor.reverse(h, mask, torch.zeros(2, 2, x.shape[1]), noise_scale=0.0)
+    assert float(np.max(np.abs(np.asarray(ref)))) > 1e-2  # the flows do real work
+    assert max_err(got.transpose(1, 2), ref) <= 1e-4
+
+
+def test_flow_reverse_matches_jax(models):
+    jm, pm = models
+    rng = np.random.default_rng(3)
+    z = rng.standard_normal((2, 24, 32)).astype(np.float32)
+    mask = np.ones((2, 24, 1), np.float32)
+    mask[1, 17:] = 0
+    ref = _jax_apply(jm, lambda m, z, mk: m.flow(z * mk, mk, reverse=True), jnp.asarray(z), jnp.asarray(mask))
+    with torch.no_grad():
+        zt, mt = torch.from_numpy(z).transpose(1, 2), torch.from_numpy(mask).transpose(1, 2)
+        got = pm.net.flow.reverse(zt * mt, mt)
+    assert max_err(got.transpose(1, 2), z * mask) > 1e-2  # not the identity
+    assert max_err(got.transpose(1, 2), ref) <= 1e-5
+
+
+def test_cuda_request_without_cuda_raises(monkeypatch):
+    from tpu_tts_torch.device import resolve_device
+    from tpu_tts_torch.infer.synthesizer import Synthesizer
+    from tpu_tts_torch.models.vits import Vits
+    from tests.torch_port_common import port_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: resolve_device(), lambda: resolve_device("cuda"), lambda: Vits(port_config()),
+                 lambda: Synthesizer()):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_port_imports_neither_jax_nor_tpu_tts():
+    code = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+        import tpu_tts_torch
+        for mod in pkgutil.walk_packages(tpu_tts_torch.__path__, "tpu_tts_torch."):
+            importlib.import_module(mod.name)
+        import chip_smoke
+        bad = sorted(m for m in sys.modules if m in ("jax", "flax", "tpu_tts") or m.startswith(("jax.", "flax.", "tpu_tts.")))
+        print(len([m for m in sys.modules if m.startswith("tpu_tts_torch.")]), bad)
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=_repo_root())
+    assert out.returncode == 0, out.stderr
+    n_port, bad = out.stdout.strip().split(" ", 1)
+    assert int(n_port) >= 20
+    assert bad == "[]", bad
+
+
+def _repo_root():
+    import os
+
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

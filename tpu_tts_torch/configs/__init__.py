@@ -1,0 +1,4 @@
+from tpu_tts_torch.configs.shared_configs import BaseTTSConfig
+from tpu_tts_torch.configs.vits_config import VitsConfig
+
+__all__ = ["BaseTTSConfig", "VitsConfig"]

@@ -1,0 +1,131 @@
+"""Common building blocks, channels-first `[B, C, T]` with `[B, 1, T]` masks.
+
+Counterparts of `tpu_tts/layers/common.py` (`Conv1d`:19, `WNConv1d`:46,
+`LayerNorm`:99, `WN`:266). Parameter names follow the Coqui state dict:
+a weight-normalised conv stores `parametrizations.weight.original0` (g, one
+norm per dim-0 slice) and `parametrizations.weight.original1` (v), as
+`torch.nn.utils.parametrizations.weight_norm` does.
+"""
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class Conv1d(nn.Conv1d):
+    """Length-preserving conv: symmetric padding (k//2)·d for odd k,
+    asymmetric (left (k//2)·d, right the rest) for even k."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1, dilation: int = 1):
+        super().__init__(in_channels, out_channels, kernel_size, dilation=dilation)
+        total = (kernel_size - 1) * dilation
+        self._left = (kernel_size // 2) * dilation
+        self._right = total - self._left
+
+    def forward(self, x):
+        if self._left or self._right:
+            x = F.pad(x, (self._left, self._right))
+        return super().forward(x)
+
+
+class WeightNorm(nn.Module):
+    """The `(g, v)` pair of one weight-normalised kernel; weight = g·v/‖v‖
+    with the norm over every dim but 0. The folded kernel is cached and
+    recomputed only when either tensor changes (load, `.to`, in-place)."""
+
+    def __init__(self, shape):
+        super().__init__()
+        self.original0 = nn.Parameter(torch.ones((shape[0],) + (1,) * (len(shape) - 1)))
+        self.original1 = nn.Parameter(torch.empty(shape))
+        self._key = None
+        self._weight = None
+
+    def reset_parameters(self, fan_in: int):
+        nn.init.normal_(self.original1, std=math.sqrt(2.0 / fan_in))
+        with torch.no_grad():
+            self.original0.copy_(self._norm(self.original1))
+
+    @staticmethod
+    def _norm(v):
+        return torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.ndim)), keepdim=True))
+
+    def forward(self) -> torch.Tensor:
+        g, v = self.original0, self.original1
+        if torch.is_grad_enabled() and (g.requires_grad or v.requires_grad):
+            return v * (g / self._norm(v))
+        key = (g._version, v._version, g.data_ptr(), v.data_ptr(), g.dtype, v.dtype)
+        if key != self._key:
+            with torch.no_grad():
+                self._weight = v * (g / self._norm(v))
+            self._key = key
+        return self._weight
+
+
+class WNConv1d(nn.Module):
+    """Weight-normalised conv with (k//2)·d zero padding on both sides."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1, dilation: int = 1):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.dilation = dilation
+        self.parametrizations = nn.ModuleDict({"weight": WeightNorm((out_channels, in_channels, kernel_size))})
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.parametrizations["weight"].reset_parameters(in_channels * kernel_size)
+
+    @property
+    def weight(self) -> torch.Tensor:
+        return self.parametrizations["weight"]()
+
+    def forward(self, x):
+        pad = (self.kernel_size // 2) * self.dilation
+        return F.conv1d(x, self.weight, self.bias, padding=pad, dilation=self.dilation)
+
+
+class LayerNorm(nn.Module):
+    """Layer norm over the channel dim of `[B, C, T]` (eps 1e-4)."""
+
+    def __init__(self, channels: int, eps: float = 1e-4):
+        super().__init__()
+        self.eps = eps
+        self.gamma = nn.Parameter(torch.ones(channels))
+        self.beta = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        mean = torch.mean(x, dim=1, keepdim=True)
+        var = torch.mean((x - mean) ** 2, dim=1, keepdim=True)
+        x = (x - mean) * torch.rsqrt(var + self.eps)
+        return x * self.gamma[None, :, None] + self.beta[None, :, None]
+
+
+class WN(nn.Module):
+    """Gated WaveNet stack with weight norm, x `[B, C, T]`. Speaker
+    conditioning (`cond_layer`) comes with multi-speaker VITS (ROADMAP.md)."""
+
+    def __init__(self, hidden_channels: int, kernel_size: int, dilation_rate: int, num_layers: int):
+        super().__init__()
+        self.hidden_channels = hidden_channels
+        self.num_layers = num_layers
+        self.in_layers = nn.ModuleList(
+            WNConv1d(hidden_channels, 2 * hidden_channels, kernel_size, dilation=dilation_rate**i)
+            for i in range(num_layers)
+        )
+        self.res_skip_layers = nn.ModuleList(
+            WNConv1d(hidden_channels, 2 * hidden_channels if i < num_layers - 1 else hidden_channels, 1)
+            for i in range(num_layers)
+        )
+
+    def forward(self, x, x_mask):
+        h = self.hidden_channels
+        output = torch.zeros_like(x)
+        for i in range(self.num_layers):
+            z = self.in_layers[i](x)
+            acts = torch.tanh(z[:, :h]) * torch.sigmoid(z[:, h:])
+            res_skip = self.res_skip_layers[i](acts)
+            if i < self.num_layers - 1:
+                x = (x + res_skip[:, :h]) * x_mask
+                output = output + res_skip[:, h:]
+            else:
+                output = output + res_skip
+        return output * x_mask

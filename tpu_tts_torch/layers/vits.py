@@ -1,0 +1,299 @@
+"""VITS building blocks of the inference path, channels-first.
+
+Counterparts of `tpu_tts/layers/vits.py`: the rational-quadratic spline
+(`rational_quadratic_spline`:38, `piecewise_rational_quadratic_transform`
+:128), the stochastic duration predictor's modules (`DilatedDepthSeparable
+Conv`:166, `ElementwiseAffine`:200, `ConvFlow`:214, `StochasticDuration
+Predictor`:254), `VitsTextEncoder`:339, `ResidualCouplingLayer`:418 and
+`ResidualCouplingBlocks`:462. Only the reverse (sampling) direction of the
+flows is here; the forward direction belongs to training.
+
+The spline's public functions keep the JAX layout: the bin dimension last.
+"""
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from tpu_tts_torch.layers.common import WN, LayerNorm
+from tpu_tts_torch.layers.transformer import RelativePositionTransformer
+from tpu_tts_torch.ops.helpers import sequence_mask
+
+DEFAULT_MIN_BIN_WIDTH = 1e-3
+DEFAULT_MIN_BIN_HEIGHT = 1e-3
+DEFAULT_MIN_DERIVATIVE = 1e-3
+
+
+def _searchsorted(bin_locations, inputs, eps=1e-6):
+    bin_locations = torch.cat([bin_locations[..., :-1], bin_locations[..., -1:] + eps], dim=-1)
+    return torch.sum(inputs[..., None] >= bin_locations, dim=-1) - 1
+
+
+def _cum_bins(unnormalized, lo, hi, min_size):
+    """Softmax bin sizes → edges pinned to [lo, hi] and the sizes between them."""
+    num_bins = unnormalized.shape[-1]
+    sizes = min_size + (1 - min_size * num_bins) * torch.softmax(unnormalized, dim=-1)
+    cum = F.pad(torch.cumsum(sizes, dim=-1), (1, 0))
+    cum = (hi - lo) * cum + lo
+    cum = torch.cat([torch.full_like(cum[..., :1], lo), cum[..., 1:-1], torch.full_like(cum[..., :1], hi)], dim=-1)
+    return cum, cum[..., 1:] - cum[..., :-1]
+
+
+def rational_quadratic_spline(
+    inputs,
+    unnormalized_widths,
+    unnormalized_heights,
+    unnormalized_derivatives,
+    inverse=False,
+    left=0.0,
+    right=1.0,
+    bottom=0.0,
+    top=1.0,
+    min_bin_width=DEFAULT_MIN_BIN_WIDTH,
+    min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
+    min_derivative=DEFAULT_MIN_DERIVATIVE,
+):
+    num_bins = unnormalized_widths.shape[-1]
+    cumwidths, widths = _cum_bins(unnormalized_widths, left, right, min_bin_width)
+    cumheights, heights = _cum_bins(unnormalized_heights, bottom, top, min_bin_height)
+    derivatives = min_derivative + F.softplus(unnormalized_derivatives)
+
+    bin_idx = _searchsorted(cumheights if inverse else cumwidths, inputs)[..., None]
+    bin_idx = bin_idx.clamp(0, num_bins - 1)
+
+    def take(x):
+        return torch.gather(x, -1, bin_idx)[..., 0]
+
+    input_cumwidths = take(cumwidths)
+    input_bin_widths = take(widths)
+    input_cumheights = take(cumheights)
+    input_delta = take(heights / widths)
+    input_derivatives = take(derivatives)
+    input_derivatives_plus_one = take(derivatives[..., 1:])
+    input_heights = take(heights)
+    slope_sum = input_derivatives + input_derivatives_plus_one - 2 * input_delta
+
+    if inverse:
+        a = (inputs - input_cumheights) * slope_sum + input_heights * (input_delta - input_derivatives)
+        b = input_heights * input_derivatives - (inputs - input_cumheights) * slope_sum
+        c = -input_delta * (inputs - input_cumheights)
+        discriminant = torch.clamp(b**2 - 4 * a * c, min=0.0)
+        root = (2 * c) / (-b - torch.sqrt(discriminant) - 1e-12)
+        outputs = root * input_bin_widths + input_cumwidths
+        theta_one_minus_theta = root * (1 - root)
+        denominator = input_delta + slope_sum * theta_one_minus_theta
+        derivative_numerator = input_delta**2 * (
+            input_derivatives_plus_one * root**2
+            + 2 * input_delta * theta_one_minus_theta
+            + input_derivatives * (1 - root) ** 2
+        )
+        logabsdet = torch.log(torch.clamp(derivative_numerator, min=1e-12)) - 2 * torch.log(
+            torch.clamp(denominator, min=1e-12)
+        )
+        return outputs, -logabsdet
+
+    theta = (inputs - input_cumwidths) / torch.clamp(input_bin_widths, min=1e-12)
+    theta_one_minus_theta = theta * (1 - theta)
+    numerator = input_heights * (input_delta * theta**2 + input_derivatives * theta_one_minus_theta)
+    denominator = input_delta + slope_sum * theta_one_minus_theta
+    outputs = input_cumheights + numerator / torch.clamp(denominator, min=1e-12)
+    derivative_numerator = input_delta**2 * (
+        input_derivatives_plus_one * theta**2
+        + 2 * input_delta * theta_one_minus_theta
+        + input_derivatives * (1 - theta) ** 2
+    )
+    logabsdet = torch.log(torch.clamp(derivative_numerator, min=1e-12)) - 2 * torch.log(
+        torch.clamp(denominator, min=1e-12)
+    )
+    return outputs, logabsdet
+
+
+def piecewise_rational_quadratic_transform(
+    inputs,
+    unnormalized_widths,
+    unnormalized_heights,
+    unnormalized_derivatives,
+    inverse=False,
+    tail_bound=5.0,
+    min_derivative=DEFAULT_MIN_DERIVATIVE,
+):
+    """'linear' tails: identity outside [-B, B], spline inside."""
+    inside = (inputs >= -tail_bound) & (inputs <= tail_bound)
+    constant = math.log(math.exp(1 - min_derivative) - 1)
+    ud = F.pad(unnormalized_derivatives, (1, 1), value=constant)
+    out_spline, logdet_spline = rational_quadratic_spline(
+        torch.clamp(inputs, -tail_bound, tail_bound),
+        unnormalized_widths,
+        unnormalized_heights,
+        ud,
+        inverse=inverse,
+        left=-tail_bound,
+        right=tail_bound,
+        bottom=-tail_bound,
+        top=tail_bound,
+    )
+    outputs = torch.where(inside, out_spline, inputs)
+    logabsdet = torch.where(inside, logdet_spline, torch.zeros_like(logdet_spline))
+    return outputs, logabsdet
+
+
+class DilatedDepthSeparableConv(nn.Module):
+    """[depthwise dilated conv → LN → gelu → 1×1 → LN → gelu] residual stack."""
+
+    def __init__(self, channels: int, kernel_size: int, num_layers: int):
+        super().__init__()
+        self.num_layers = num_layers
+        self.convs_sep = nn.ModuleList()
+        for i in range(num_layers):
+            dilation = kernel_size**i
+            pad = (kernel_size * dilation - dilation) // 2
+            self.convs_sep.append(
+                nn.Conv1d(channels, channels, kernel_size, groups=channels, dilation=dilation, padding=pad)
+            )
+        self.convs_1x1 = nn.ModuleList(nn.Conv1d(channels, channels, 1) for _ in range(num_layers))
+        self.norms_1 = nn.ModuleList(LayerNorm(channels) for _ in range(num_layers))
+        self.norms_2 = nn.ModuleList(LayerNorm(channels) for _ in range(num_layers))
+
+    def forward(self, x, x_mask, g=None):
+        if g is not None:
+            x = x + g
+        for i in range(self.num_layers):
+            y = F.gelu(self.norms_1[i](self.convs_sep[i](x * x_mask)))
+            y = F.gelu(self.norms_2[i](self.convs_1x1[i](y)))
+            x = x + y
+        return x * x_mask
+
+
+class ElementwiseAffine(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.translation = nn.Parameter(torch.zeros(channels, 1))
+        self.log_scale = nn.Parameter(torch.zeros(channels, 1))
+
+    def reverse(self, x, x_mask, g=None):
+        return (x - self.translation) * torch.exp(-self.log_scale) * x_mask
+
+
+class ConvFlow(nn.Module):
+    """Half-split coupling with a spline transform."""
+
+    def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int, num_layers: int,
+                 num_bins: int = 10, tail_bound: float = 5.0):
+        super().__init__()
+        self.half = in_channels // 2
+        self.hidden_channels = hidden_channels
+        self.num_bins = num_bins
+        self.tail_bound = tail_bound
+        self.pre = nn.Conv1d(self.half, hidden_channels, 1)
+        self.convs = DilatedDepthSeparableConv(hidden_channels, kernel_size, num_layers)
+        self.proj = nn.Conv1d(hidden_channels, self.half * (num_bins * 3 - 1), 1)
+        nn.init.zeros_(self.proj.weight)
+        nn.init.zeros_(self.proj.bias)
+
+    def reverse(self, x, x_mask, g=None):
+        x0, x1 = x[:, : self.half], x[:, self.half :]
+        h = self.convs(self.pre(x0), x_mask, g=g)
+        h = self.proj(h) * x_mask
+        B, _, T = x0.shape
+        h = h.reshape(B, self.half, 3 * self.num_bins - 1, T).permute(0, 1, 3, 2)  # [B, half, T, 3n-1]
+        scale = 1.0 / math.sqrt(self.hidden_channels)
+        uw = h[..., : self.num_bins] * scale
+        uh = h[..., self.num_bins : 2 * self.num_bins] * scale
+        ud = h[..., 2 * self.num_bins :]
+        x1, _ = piecewise_rational_quadratic_transform(x1, uw, uh, ud, inverse=True, tail_bound=self.tail_bound)
+        return torch.cat([x0, x1], dim=1) * x_mask
+
+
+class StochasticDurationPredictor(nn.Module):
+    """Spline-flow duration predictor. Holds the posterior flows too, so a
+    Coqui state dict loads by name; only the reverse direction runs here."""
+
+    def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int, num_flows: int = 4):
+        super().__init__()
+        self.pre = nn.Conv1d(in_channels, hidden_channels, 1)
+        self.convs = DilatedDepthSeparableConv(hidden_channels, kernel_size, 3)
+        self.proj = nn.Conv1d(hidden_channels, hidden_channels, 1)
+        self.flows = nn.ModuleList(
+            [ElementwiseAffine(2)] + [ConvFlow(2, hidden_channels, kernel_size, 3) for _ in range(num_flows)]
+        )
+        self.post_pre = nn.Conv1d(1, hidden_channels, 1)
+        self.post_convs = DilatedDepthSeparableConv(hidden_channels, kernel_size, 3)
+        self.post_proj = nn.Conv1d(hidden_channels, hidden_channels, 1)
+        self.post_flows = nn.ModuleList(
+            [ElementwiseAffine(2)] + [ConvFlow(2, hidden_channels, kernel_size, 3) for _ in range(num_flows)]
+        )
+
+    def reverse(self, x, x_mask, noise: torch.Tensor, noise_scale: float = 1.0):
+        """x `[B, C, T]`, noise `[B, 2, T]` standard normal → logw `[B, 1, T]`."""
+        x = self.convs(self.pre(x), x_mask)
+        x = self.proj(x) * x_mask
+        flows = list(reversed(self.flows))
+        flows = flows[:-2] + [flows[-1]]  # drop the unused extra flow
+        z = noise * noise_scale
+        for flow in flows:
+            z = torch.flip(z, [1])
+            z = flow.reverse(z, x_mask, g=x)
+        return z[:, :1]
+
+
+class VitsTextEncoder(nn.Module):
+    """Embedding → rel-pos transformer → (h, m, logs, x_mask)."""
+
+    def __init__(self, n_vocab: int, out_channels: int, hidden_channels: int, hidden_channels_ffn: int,
+                 num_heads: int, num_layers: int, kernel_size: int):
+        super().__init__()
+        self.hidden_channels = hidden_channels
+        self.out_channels = out_channels
+        self.emb = nn.Embedding(n_vocab, hidden_channels)
+        nn.init.normal_(self.emb.weight, 0.0, hidden_channels**-0.5)
+        self.encoder = RelativePositionTransformer(
+            hidden_channels, hidden_channels_ffn, num_heads, num_layers, kernel_size, rel_attn_window_size=4
+        )
+        self.proj = nn.Conv1d(hidden_channels, out_channels * 2, 1)
+
+    def forward(self, x, x_lengths):
+        """x `[B, T]` token ids, x_lengths `[B]`."""
+        h = (self.emb(x) * math.sqrt(self.hidden_channels)).transpose(1, 2)  # [B, C, T]
+        x_mask = sequence_mask(x_lengths, x.shape[1]).to(h.dtype)[:, None, :]
+        h = self.encoder(h * x_mask, x_mask)
+        stats = self.proj(h) * x_mask
+        m, logs = torch.split(stats, self.out_channels, dim=1)
+        return h, m, logs, x_mask
+
+
+class ResidualCouplingLayer(nn.Module):
+    """Mean-only affine coupling with a WN core."""
+
+    def __init__(self, channels: int, hidden_channels: int, kernel_size: int, dilation_rate: int, num_layers: int):
+        super().__init__()
+        self.half = channels // 2
+        self.pre = nn.Conv1d(self.half, hidden_channels, 1)
+        self.enc = WN(hidden_channels, kernel_size, dilation_rate, num_layers)
+        self.post = nn.Conv1d(hidden_channels, self.half, 1)
+        nn.init.zeros_(self.post.weight)
+        nn.init.zeros_(self.post.bias)
+
+    def reverse(self, x, x_mask):
+        x0, x1 = x[:, : self.half], x[:, self.half :]
+        h = self.enc(self.pre(x0) * x_mask, x_mask)
+        m = self.post(h) * x_mask
+        return torch.cat([x0, (x1 - m) * x_mask], dim=1)
+
+
+class ResidualCouplingBlocks(nn.Module):
+    """num_flows × [coupling, flip]; flips carry no parameters."""
+
+    def __init__(self, channels: int, hidden_channels: int, kernel_size: int, dilation_rate: int, num_layers: int,
+                 num_flows: int = 4):
+        super().__init__()
+        self.flows = nn.ModuleList(
+            ResidualCouplingLayer(channels, hidden_channels, kernel_size, dilation_rate, num_layers)
+            for _ in range(num_flows)
+        )
+
+    def reverse(self, x, x_mask):
+        for layer in reversed(self.flows):
+            x = layer.reverse(torch.flip(x, [1]), x_mask)
+        return x

@@ -1,0 +1,95 @@
+"""JAX VITS generator params → the port's `state_dict`.
+
+`params_from_flax(tree)` takes the `generator` tree of the JAX model as a
+nested dict of numpy arrays and returns the tensors `VitsNet.load_state_dict`
+takes. It is the inverse of the JAX package's `convert_vits_torch_state_dict`
+(tpu_tts/models/vits_convert.py:195) on the modules inference runs:
+
+- flax path names → Coqui state-dict names (rules below);
+- Dense `[in, out]` → 1×1 conv `[out, in, 1]`; conv `[k, in, out]` → `[out, in, k]`;
+- weight-norm `(v, g)` (g per output channel) → the folded kernel, laid out
+  for torch and split again into torch's `(original0 = g, original1 = v)`
+  with g per dim-0 slice. For a transposed conv dim 0 is the input channel
+  and the kernel is flipped in time (flax's fractionally strided conv
+  correlates with the reversed kernel);
+- the SDP's ElementwiseAffine `[C]` → `[C, 1]`.
+
+The posterior encoder belongs to training and is skipped.
+"""
+
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+
+_RULES = [
+    (r"^text_encoder/encoder/attn_(\d+)/", r"text_encoder/encoder/attn_layers/\1/"),
+    (r"^text_encoder/encoder/norm([12])_(\d+)/", r"text_encoder/encoder/norm_layers_\1/\2/"),
+    (r"^text_encoder/encoder/ffn_(\d+)/conv_([12])/conv/", r"text_encoder/encoder/ffn_layers/\1/conv_\2/"),
+    (r"^flow/coupling_(\d+)/", r"flow/flows/\1/"),
+    (r"/enc/in_(\d+)/", r"/enc/in_layers/\1/"),
+    (r"/enc/res_skip_(\d+)/", r"/enc/res_skip_layers/\1/"),
+    (r"/enc/cond/", r"/enc/cond_layer/"),
+    (r"^duration_predictor/(post_)?flows_(\d+)/", r"duration_predictor/\1flows/\2/"),
+    (r"convs/sep_(\d+)/", r"convs/convs_sep/\1/"),
+    (r"convs/conv1x1_(\d+)/", r"convs/convs_1x1/\1/"),
+    (r"convs/norm([12])_(\d+)/", r"convs/norms_\1/\2/"),
+    (r"^waveform_decoder/ups_(\d+)/", r"waveform_decoder/ups/\1/"),
+    (r"^waveform_decoder/resblocks_(\d+)/convs([12])_(\d+)/", r"waveform_decoder/resblocks/\1/convs\2/\3/"),
+]
+
+
+def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict) or hasattr(v, "items"):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v, dtype=np.float32)
+    return out
+
+
+def _rename(module: str) -> str:
+    path = module + "/"
+    for pat, rep in _RULES:
+        path = re.sub(pat, rep, path)
+    return path.rstrip("/").replace("/", ".")
+
+
+def _wn_split(w: np.ndarray):
+    g = np.sqrt(np.sum(w.astype(np.float64) ** 2, axis=tuple(range(1, w.ndim)), keepdims=True)).astype(np.float32)
+    return g, w
+
+
+def params_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX `VitsNet` params (the `generator` tree) → the port's `state_dict`."""
+    flat = {k: v for k, v in _flatten(tree).items() if not k.startswith("posterior_encoder/")}
+    sd: Dict[str, np.ndarray] = {}
+    for path, arr in flat.items():
+        module, leaf = path.rsplit("/", 1)
+        name = _rename(module)
+        if leaf == "g":
+            continue  # handled with its `v`
+        if leaf == "v":
+            g = flat[f"{module}/g"]
+            norm = np.sqrt(np.sum(arr.astype(np.float64) ** 2, axis=(0, 1), keepdims=True) + 1e-12)
+            kernel = (arr / norm * g[None, None, :]).astype(np.float32)  # flax [k, in, out]
+            if re.search(r"waveform_decoder/ups_\d+$", module):
+                w = np.transpose(kernel[::-1], (1, 2, 0))  # torch ConvTranspose1d [in, out, k]
+            else:
+                w = np.transpose(kernel, (2, 1, 0))  # torch Conv1d [out, in, k]
+            g_t, v_t = _wn_split(np.ascontiguousarray(w))
+            sd[f"{name}.parametrizations.weight.original0"] = g_t
+            sd[f"{name}.parametrizations.weight.original1"] = v_t
+        elif leaf == "kernel":
+            w = arr.T[:, :, None] if arr.ndim == 2 else np.transpose(arr, (2, 1, 0))
+            sd[f"{name}.weight"] = w
+        elif leaf in ("translation", "log_scale"):
+            sd[f"{name}.{leaf}"] = arr.reshape(-1, 1)
+        elif leaf == "embedding":
+            sd[f"{name}.weight"] = arr
+        else:
+            sd[f"{name}.{leaf}"] = arr
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}

@@ -1,0 +1,109 @@
+"""HiFi-GAN generator, channels-first, with every MRF stage on the CUDA kernel.
+
+Counterpart of `tpu_tts/vocoder/models/hifigan_generator.py`
+(`WNConvTranspose1d`:26, `ResBlock1`:57, `HifiganGenerator`:93). Each stage's
+MRF stack goes through `ops.hifigan_mrf.mrf_stack`, at every width. As in
+the flax generator, the final leaky relu has slope 0.01; the port's
+generator runs in float32 throughout (the kernel also takes bfloat16).
+"""
+
+from typing import Dict, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from tpu_tts_torch.layers.common import WeightNorm, WNConv1d
+from tpu_tts_torch.ops.hifigan_mrf import LRELU_SLOPE, MrfStage, mrf_stack, pack_stage
+
+
+class WNConvTranspose1d(nn.Module):
+    """Weight-normalised transposed conv, output length T·stride. The weight
+    has torch's ConvTranspose1d layout `[C_in, C_out, k]`, normalised per
+    input channel (dim 0), as Coqui's checkpoints store it."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int):
+        super().__init__()
+        self.stride = stride
+        self.padding = (kernel_size - stride) // 2
+        self.parametrizations = nn.ModuleDict({"weight": WeightNorm((in_channels, out_channels, kernel_size))})
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.parametrizations["weight"].reset_parameters(in_channels * kernel_size)
+
+    def forward(self, x):
+        w = self.parametrizations["weight"]()
+        return F.conv_transpose1d(x, w, self.bias, stride=self.stride, padding=self.padding)
+
+
+class ResBlock1(nn.Module):
+    """Parameters of one ResBlock1: convs1 (dilated) and convs2 per unit. Its
+    math runs inside the stage's MRF stack."""
+
+    def __init__(self, channels: int, kernel_size: int = 3, dilation: Tuple[int, ...] = (1, 3, 5)):
+        super().__init__()
+        self.dilation = tuple(dilation)
+        self.convs1 = nn.ModuleList(WNConv1d(channels, channels, kernel_size, dilation=d) for d in self.dilation)
+        self.convs2 = nn.ModuleList(WNConv1d(channels, channels, kernel_size) for _ in self.dilation)
+
+    def units(self):
+        return [
+            (c1.weight, c1.bias, c2.weight, c2.bias, d)
+            for c1, c2, d in zip(self.convs1, self.convs2, self.dilation)
+        ]
+
+
+class HifiganGenerator(nn.Module):
+    """latent `[B, C_in, T]` → waveform `[B, 1, T·prod(upsample_factors)]`."""
+
+    def __init__(
+        self,
+        in_channels: int = 80,
+        out_channels: int = 1,
+        resblock_type: str = "1",
+        resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5), (1, 3, 5), (1, 3, 5)),
+        resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
+        upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4),
+        upsample_initial_channel: int = 512,
+        upsample_factors: Sequence[int] = (8, 8, 2, 2),
+        cond_channels: int = 0,
+        cond_in_each_up_layer: bool = False,
+    ):
+        super().__init__()
+        if str(resblock_type) != "1":
+            raise NotImplementedError("ResBlock2 is not ported yet (ROADMAP.md, queue 1)")
+        if cond_channels or cond_in_each_up_layer:
+            raise NotImplementedError("speaker conditioning of the decoder is not ported yet (ROADMAP.md, queue 1)")
+        self.num_kernels = len(resblock_kernel_sizes)
+        self.num_upsamples = len(upsample_factors)
+        self.conv_pre = WNConv1d(in_channels, upsample_initial_channel, 7)
+        self.ups = nn.ModuleList()
+        self.resblocks = nn.ModuleList()
+        for i, (u, k) in enumerate(zip(upsample_factors, upsample_kernel_sizes)):
+            ch_in = upsample_initial_channel // (2**i)
+            ch = upsample_initial_channel // (2 ** (i + 1))
+            self.ups.append(WNConvTranspose1d(ch_in, ch, k, u))
+            for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
+                self.resblocks.append(ResBlock1(ch, rk, tuple(rd)))
+        self.conv_post = WNConv1d(ch, out_channels, 7)
+        self._packed: Dict[int, Tuple[tuple, MrfStage]] = {}
+
+    def mrf_stage(self, i: int) -> MrfStage:
+        """Stage i's MRF weights, folded and packed once and repacked only
+        when a parameter of the stage changes."""
+        blocks = self.resblocks[i * self.num_kernels : (i + 1) * self.num_kernels]
+        params = [p for rb in blocks for p in rb.parameters()]
+        key = tuple((p._version, p.data_ptr(), p.dtype) for p in params)
+        hit = self._packed.get(i)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = (key, pack_stage([rb.units() for rb in blocks]))
+            self._packed[i] = hit
+        return hit[1]
+
+    def forward(self, x):
+        o = self.conv_pre(x)
+        for i in range(self.num_upsamples):
+            o = self.ups[i](F.leaky_relu(o, LRELU_SLOPE))
+            o = mrf_stack(o, self.mrf_stage(i))
+        # slope 0.01 here, as in the flax generator (torch's default)
+        return torch.tanh(self.conv_post(F.leaky_relu(o, 0.01)))
