@@ -1,6 +1,11 @@
 """The port's CUDA kernels against their plain versions on the card, and the
 launch plan of the MRF kernel on the CPU.
 
+WaveRNN sampler (K2): a free-running comparison with the plain version can
+part after one near-tie flip of an argmax (float32 sums in another order),
+so the plain version is rerun teacher-forced with the kernel's own samples
+and every draw of the kernel must score within 1e-4 of that step's best.
+
 The `cuda` tests skip without a CUDA device. This file imports neither JAX
 nor the JAX package, so it also runs on a machine with only PyTorch:
 
@@ -12,7 +17,7 @@ import math
 import pytest
 import torch
 
-from tpu_tts_torch.ops import hifigan_mrf
+from tpu_tts_torch.ops import hifigan_mrf, wavernn_sampler
 
 torch.set_num_threads(1)
 
@@ -98,3 +103,56 @@ def test_mrf_plan_fills_the_card_within_shared_memory():
                 assert (C // S // 32) * ((tile + k - 1) // 32) <= hifigan_mrf.MAX_ITEMS
     with pytest.raises(ValueError):
         hifigan_mrf.plan(1, 4096, 1000, 11, 5, 132, smem(4096, 11, 5))
+
+
+def _wavernn(B, T, R, F, C, mel=20, aux=8, seed=0):
+    """A random WaveRNN cell's packed weights and the streams of random
+    conditioning, on the card."""
+    from tpu_tts_torch.vocoder.models.wavernn import WavernnArgs, WavernnNet
+
+    torch.manual_seed(seed)
+    args = WavernnArgs(rnn_dims=R, fc_dims=F, mode=str(int(math.log2(C))), res_out_dims=4 * aux, feat_dims=mel)
+    w = wavernn_sampler.pack_weights(WavernnNet(args).cuda())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mels_up = torch.randn(B, T, mel, generator=gen, device="cuda")
+    aux_in = torch.randn(B, T, 4 * aux, generator=gen, device="cuda")
+    return w, *wavernn_sampler.precompute_streams(w, mels_up, aux_in)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,R,F,C", [(2, 40, 16, 16, 128), (7, 300, 32, 48, 256), (5, 512, 512, 512, 512)])
+@pytest.mark.parametrize("greedy", [True, False])
+def test_wavernn_sampler_matches_reference(B, T, R, F, C, greedy):
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w, streams, tc = _wavernn(B, T, R, F, C)
+    before = wavernn_sampler.launches
+    got = wavernn_sampler.sample(w, streams, tc, greedy=greedy, seed=11)
+    torch.cuda.synchronize()
+    assert wavernn_sampler.launches == before + 1
+    assert got.shape == (B, streams[0].shape[1])
+    gap = wavernn_sampler.score_gap(w, streams, tc, got, greedy=greedy, seed=11)
+    assert float(gap.max()) <= 1e-4
+    assert float(gap.min()) >= 0.0
+    assert len(torch.unique(got)) > 10  # the draw moves
+
+
+@pytest.mark.cuda
+def test_wavernn_sampler_rejects_bad_input():
+    _need_cuda()
+    w, streams, tc = _wavernn(2, 16, 16, 16, 128)
+    bad = [
+        (streams[0].double(),) + streams[1:],  # type
+        (streams[0], streams[1].cpu()) + streams[2:],  # device
+        (streams[0].transpose(0, 1).contiguous().transpose(0, 1),) + streams[1:],  # contiguity
+        (streams[0][:, :, :8].contiguous(),) + streams[1:],  # shape
+        streams[:3],  # count
+    ]
+    for s in bad:
+        with pytest.raises(ValueError):
+            wavernn_sampler.sample(w, s, tc)
+    with pytest.raises(ValueError):  # T not a whole number of chunks
+        wavernn_sampler.sample(w, tuple(x[:, :15].contiguous() for x in streams), tc)
+    w.fc3 = w.fc3.cpu()
+    with pytest.raises(ValueError):  # weights on another device
+        wavernn_sampler.sample(w, streams, tc)

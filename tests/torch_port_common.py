@@ -1,10 +1,11 @@
-"""Shared set-up of the `test_torch_port_*` files: one tiny VITS built on both
-sides, the JAX generator params drawn from a numpy seed and carried into the
-port through `params_from_flax`."""
+"""Shared set-up of the `test_torch_port_*` files: a tiny VITS and a tiny
+WaveRNN built on both sides, the JAX params drawn from a numpy seed and
+carried into the port through `params_from_flax`."""
 
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -74,8 +75,6 @@ def jax_model():
     per process)."""
     from tpu_tts.models.vits import Vits
 
-    import jax.numpy as jnp
-
     model = Vits(jax_config())
     x = jnp.zeros((1, 8), jnp.int32)
     spec = jnp.zeros((1, 12, model.args.out_channels))
@@ -99,3 +98,60 @@ def max_err(a, b) -> float:
     b = b.detach().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
     assert a.shape == b.shape, (a.shape, b.shape)
     return float(np.max(np.abs(a - b)))
+
+
+TINY_WAVERNN = dict(rnn_dims=16, fc_dims=16, compute_dims=8, res_out_dims=8, num_res_blocks=1,
+                    upsample_factors=[2, 2], mode="7", mulaw=True, pad=2, feat_dims=20)
+
+
+def draw_wavernn_tree(tree, seed: int):
+    """Params and batch statistics from a numpy seed: BatchNorm `scale` and
+    running `var` ≈ 1 ± 0.3, the smoothing kernels a moving average ± 0.05,
+    everything else ~N(0, 0.3²)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name, shape = path[-1].key, tuple(leaf.shape)
+        if name.startswith("smooth_"):
+            return (1.0 / shape[0] + 0.05 * rng.uniform(-1, 1, shape)).astype(np.float32)
+        if name in ("scale", "var"):
+            return (1.0 + 0.3 * rng.uniform(-1, 1, shape)).astype(np.float32)
+        return (0.3 * rng.standard_normal(shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, tree)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_wavernn(upsample_factors=(2, 2)):
+    """The tiny JAX `Wavernn` ('bits' mode 7, mu-law, aux net) with seeded
+    random params and batch statistics (built once per process and hop)."""
+    from tpu_tts.vocoder.configs.wavegrad_config import WavernnConfig
+    from tpu_tts.vocoder.models.wavernn import Wavernn, WavernnArgs
+
+    cfg = WavernnConfig()
+    cfg.model_args = WavernnArgs(**{**TINY_WAVERNN, "upsample_factors": list(upsample_factors)})
+    model = Wavernn(cfg)
+    a, hop = model.args, int(np.prod(model.args.upsample_factors))
+    x, mels = jnp.zeros((2, 4 * hop)), jnp.zeros((2, 2 * a.pad + 4, a.feat_dims))
+    shapes = jax.eval_shape(lambda: model.net.init(jax.random.PRNGKey(0), x, mels))
+    variables = draw_wavernn_tree(shapes, 7)
+    model.params = variables["params"]
+    model.model_state = {"batch_stats": variables["batch_stats"]}
+    return model
+
+
+def port_wavernn_config(audio=None, **overrides):
+    from tpu_tts_torch.config.shared_configs import BaseAudioConfig
+    from tpu_tts_torch.vocoder.configs import WavernnConfig
+
+    return WavernnConfig(model_args={**TINY_WAVERNN, **overrides}, audio=BaseAudioConfig(**(audio or {})))
+
+
+def port_wavernn(jm, **config):
+    """The port's `Wavernn` on the CPU carrying the JAX model's weights."""
+    from tpu_tts_torch.vocoder.models.wavernn import Wavernn
+    from tpu_tts_torch.vocoder.models.wavernn_convert import params_from_flax
+
+    model = Wavernn(port_wavernn_config(upsample_factors=list(jm.args.upsample_factors), **config), device="cpu")
+    model.net.load_state_dict(params_from_flax(jm.params, jm.model_state), strict=True)
+    return model

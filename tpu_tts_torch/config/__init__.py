@@ -36,6 +36,7 @@ def _ensure_registry_populated() -> None:
     import importlib
 
     importlib.import_module("tpu_tts_torch.configs")
+    importlib.import_module("tpu_tts_torch.vocoder.configs")
 
 
 def register_config(model_name: str) -> Type[Coqpit]:

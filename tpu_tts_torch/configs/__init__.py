@@ -1,4 +1,5 @@
+from tpu_tts_torch.configs.glow_tts_config import GlowTTSConfig
 from tpu_tts_torch.configs.shared_configs import BaseTTSConfig
 from tpu_tts_torch.configs.vits_config import VitsConfig
 
-__all__ = ["BaseTTSConfig", "VitsConfig"]
+__all__ = ["BaseTTSConfig", "GlowTTSConfig", "VitsConfig"]

@@ -1,7 +1,8 @@
 """Common building blocks, channels-first `[B, C, T]` with `[B, 1, T]` masks.
 
 Counterparts of `tpu_tts/layers/common.py` (`Conv1d`:19, `WNConv1d`:46,
-`LayerNorm`:99, `WN`:266). Parameter names follow the Coqui state dict:
+`LayerNorm`:99, `ResidualConv1dLayerNormBlock`:160, `WN`:266,
+`DurationPredictor`:312), at inference (dropout off). Parameter names follow the Coqui state dict:
 a weight-normalised conv stores `parametrizations.weight.original0` (g, one
 norm per dim-0 slice) and `parametrizations.weight.original1` (v), as
 `torch.nn.utils.parametrizations.weight_norm` does.
@@ -129,3 +130,39 @@ class WN(nn.Module):
             else:
                 output = output + res_skip
         return output * x_mask
+
+
+class ResidualConv1dLayerNormBlock(nn.Module):
+    """[k-conv → LN → relu] × N, then a residual 1×1 projection (the Glow-TTS
+    encoder prenet)."""
+
+    def __init__(self, in_channels: int, hidden_channels: int, out_channels: int, kernel_size: int, num_layers: int):
+        super().__init__()
+        self.conv_layers = nn.ModuleList(
+            Conv1d(in_channels if i == 0 else hidden_channels, hidden_channels, kernel_size) for i in range(num_layers)
+        )
+        self.norm_layers = nn.ModuleList(LayerNorm(hidden_channels) for _ in range(num_layers))
+        self.proj = nn.Conv1d(hidden_channels, out_channels, 1)
+
+    def forward(self, x, x_mask):
+        x_res = x
+        for conv, norm in zip(self.conv_layers, self.norm_layers):
+            x = torch.relu(norm(conv(x * x_mask) * x_mask))
+        return (x_res + self.proj(x)) * x_mask
+
+
+class DurationPredictor(nn.Module):
+    """[k-conv → relu → LN] × 2 → 1×1 conv: log durations `[B, 1, T]`."""
+
+    def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int):
+        super().__init__()
+        self.conv_1 = Conv1d(in_channels, hidden_channels, kernel_size)
+        self.norm_1 = LayerNorm(hidden_channels)
+        self.conv_2 = Conv1d(hidden_channels, hidden_channels, kernel_size)
+        self.norm_2 = LayerNorm(hidden_channels)
+        self.proj = nn.Conv1d(hidden_channels, 1, 1)
+
+    def forward(self, x, x_mask):
+        x = self.norm_1(torch.relu(self.conv_1(x * x_mask)))
+        x = self.norm_2(torch.relu(self.conv_2(x * x_mask)))
+        return self.proj(x * x_mask) * x_mask

@@ -3,8 +3,13 @@
 
 def setup_model(config, device=None):
     """Build the model a config names, on `device` (`cuda` by default)."""
-    if config.model.lower() != "vits":
-        raise NotImplementedError(f"model `{config.model}` is not ported yet (ROADMAP.md, queue 1)")
-    from tpu_tts_torch.models.vits import Vits
+    name = config.model.lower()
+    if name == "vits":
+        from tpu_tts_torch.models.vits import Vits
 
-    return Vits.init_from_config(config, device=device)
+        return Vits.init_from_config(config, device=device)
+    if name == "glow_tts":
+        from tpu_tts_torch.models.glow_tts import GlowTTS
+
+        return GlowTTS.init_from_config(config, device=device)
+    raise NotImplementedError(f"model `{config.model}` is not ported yet (ROADMAP.md, queue 1)")

@@ -51,9 +51,9 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
     return out
 
 
-def _rename(module: str) -> str:
+def _rename(module: str, rules) -> str:
     path = module + "/"
-    for pat, rep in _RULES:
+    for pat, rep in rules:
         path = re.sub(pat, rep, path)
     return path.rstrip("/").replace("/", ".")
 
@@ -63,20 +63,23 @@ def _wn_split(w: np.ndarray):
     return g, w
 
 
-def params_from_flax(tree) -> Dict[str, torch.Tensor]:
-    """JAX `VitsNet` params (the `generator` tree) → the port's `state_dict`."""
-    flat = {k: v for k, v in _flatten(tree).items() if not k.startswith("posterior_encoder/")}
+def flax_to_state_dict(flat: Dict[str, np.ndarray], rules, is_transposed_conv=lambda module: False
+                       ) -> Dict[str, np.ndarray]:
+    """Flattened flax params (`module/path/leaf` → array) → torch state-dict
+    entries: module paths renamed by `rules` (regex, replacement) in order,
+    leaves laid out for torch as the module docstring says. Shared by the
+    VITS and Glow-TTS bridges."""
     sd: Dict[str, np.ndarray] = {}
     for path, arr in flat.items():
         module, leaf = path.rsplit("/", 1)
-        name = _rename(module)
+        name = _rename(module, rules)
         if leaf == "g":
             continue  # handled with its `v`
         if leaf == "v":
             g = flat[f"{module}/g"]
             norm = np.sqrt(np.sum(arr.astype(np.float64) ** 2, axis=(0, 1), keepdims=True) + 1e-12)
             kernel = (arr / norm * g[None, None, :]).astype(np.float32)  # flax [k, in, out]
-            if re.search(r"waveform_decoder/ups_\d+$", module):
+            if is_transposed_conv(module):
                 w = np.transpose(kernel[::-1], (1, 2, 0))  # torch ConvTranspose1d [in, out, k]
             else:
                 w = np.transpose(kernel, (2, 1, 0))  # torch Conv1d [out, in, k]
@@ -92,4 +95,11 @@ def params_from_flax(tree) -> Dict[str, torch.Tensor]:
             sd[f"{name}.weight"] = arr
         else:
             sd[f"{name}.{leaf}"] = arr
+    return sd
+
+
+def params_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX `VitsNet` params (the `generator` tree) → the port's `state_dict`."""
+    flat = {k: v for k, v in _flatten(tree).items() if not k.startswith("posterior_encoder/")}
+    sd = flax_to_state_dict(flat, _RULES, lambda module: re.search(r"waveform_decoder/ups_\d+$", module))
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}

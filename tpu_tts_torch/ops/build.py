@@ -18,6 +18,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -30,8 +30,9 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 
+from tpu_tts_torch.ops.build import SMEM_LIMIT
+
 LRELU_SLOPE = 0.1
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
 # kernel launches made by `mrf_stack` on CUDA tensors; read and reset by
 # whoever wants to know that a run went through the kernel

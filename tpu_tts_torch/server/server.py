@@ -1,8 +1,9 @@
 """TTS HTTP server of the port.
 
 Counterpart of `tpu_tts/server/server.py` (`/api/tts` GET and POST, `/details`,
-`create_server`, `main`) on the stdlib `http.server`. Requests take the
-locked path: one synthesis at a time, as the reference server's global lock.
+`create_server`, `main`, `--vocoder_path`/`--vocoder_config_path`) on the
+stdlib `http.server`. Requests take the locked path: one synthesis at a
+time, as the reference server's global lock.
 The micro-batcher, the MaryTTS routes and the XTTS stream route are not
 ported yet (ROADMAP.md).
 """
@@ -80,16 +81,23 @@ class TTSHandler(BaseHTTPRequestHandler):
 
 def create_server(args):
     """A `ThreadingHTTPServer` serving the checkpoint of `args.model_path` with
-    `args.config_path` on `args.device` (`cuda` unless told otherwise)."""
+    `args.config_path` (and the vocoder of `args.vocoder_path` with
+    `args.vocoder_config_path`, if given) on `args.device` (`cuda` unless
+    told otherwise)."""
     from tpu_tts_torch.infer.synthesizer import Synthesizer
 
     synthesizer = Synthesizer(
         tts_checkpoint=args.model_path or "",
         tts_config_path=args.config_path or "",
+        vocoder_checkpoint=getattr(args, "vocoder_path", None) or "",
+        vocoder_config=getattr(args, "vocoder_config_path", None) or "",
         device=getattr(args, "device", None),
     )
     TTSHandler.synthesizer = synthesizer
-    TTSHandler.details = {"tts_config": synthesizer.tts_config.to_dict() if synthesizer.tts_config else {}}
+    TTSHandler.details = {
+        "tts_config": synthesizer.tts_config.to_dict() if synthesizer.tts_config else {},
+        "vocoder_config": synthesizer.vocoder_config.to_dict() if synthesizer.vocoder_config else None,
+    }
     return ThreadingHTTPServer((args.host, args.port), TTSHandler)
 
 
@@ -97,6 +105,8 @@ def build_parser():
     parser = argparse.ArgumentParser(description="Run the tpu-tts PyTorch port's HTTP server.")
     parser.add_argument("--model_path", type=str, required=True, help="torch state_dict file of the model.")
     parser.add_argument("--config_path", type=str, required=True, help="config.json of the model.")
+    parser.add_argument("--vocoder_path", type=str, default=None, help="torch state_dict file of the vocoder.")
+    parser.add_argument("--vocoder_config_path", type=str, default=None, help="config.json of the vocoder.")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu.")
     parser.add_argument("--host", type=str, default="localhost")
     parser.add_argument("--port", type=int, default=5002)
