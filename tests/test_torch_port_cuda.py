@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain versions on the card, and the
-launch plan of the MRF kernel on the CPU.
+launch plans of both kernels on the CPU.
 
 WaveRNN sampler (K2): a free-running comparison with the plain version can
 part after one near-tie flip of an argmax (float32 sums in another order),
@@ -105,22 +105,56 @@ def test_mrf_plan_fills_the_card_within_shared_memory():
         hifigan_mrf.plan(1, 4096, 1000, 11, 5, 132, smem(4096, 11, 5))
 
 
-def _wavernn(B, T, R, F, C, mel=20, aux=8, seed=0):
+def test_wavernn_plan_holds_the_weights_in_shared_memory():
+    """K2's launch plan: at the served widths on 132 SMs the 3.93 M loop
+    weights live in the blocks' shared memory (one block an SM, four columns
+    of each phase a block) beside the staging of about 26 rows; at
+    R = F = 1024 a block's share does not fit and the weights stay in global
+    memory."""
+    pl = wavernn_sampler.plan(512, 512, 512, 132)
+    assert pl.weights_shared and pl.grid == 128 and pl.cols == (4, 4, 4)
+    assert pl.weight_floats() * pl.grid == 12 * 512 * 512 + 3 * 512 * 512  # every loop weight, once
+    assert 24 <= pl.rows_per_launch <= 27
+    assert pl.smem_bytes(pl.rows_per_launch) <= wavernn_sampler.build.SMEM_LIMIT
+    assert pl.smem_bytes(pl.rows_per_launch + 1) > wavernn_sampler.build.SMEM_LIMIT
+    wide = wavernn_sampler.plan(1024, 1024, 512, 132)
+    assert not wide.weights_shared and wide.grid == 132 and wide.rows_per_launch >= 1
+    assert wide.smem_bytes(wide.rows_per_launch) <= wavernn_sampler.build.SMEM_LIMIT
+    small = wavernn_sampler.plan(16, 16, 128, 132)
+    assert small.weights_shared and small.grid == 32 and small.cols == (1, 1, 4)
+
+
+def _wavernn(B, T, R, F, C, mel=20, aux=8, seed=0, device="cuda"):
     """A random WaveRNN cell's packed weights and the streams of random
-    conditioning, on the card."""
+    conditioning, on `device`."""
     from tpu_tts_torch.vocoder.models.wavernn import WavernnArgs, WavernnNet
 
     torch.manual_seed(seed)
     args = WavernnArgs(rnn_dims=R, fc_dims=F, mode=str(int(math.log2(C))), res_out_dims=4 * aux, feat_dims=mel)
-    w = wavernn_sampler.pack_weights(WavernnNet(args).cuda())
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    mels_up = torch.randn(B, T, mel, generator=gen, device="cuda")
-    aux_in = torch.randn(B, T, 4 * aux, generator=gen, device="cuda")
+    w = wavernn_sampler.pack_weights(WavernnNet(args).to(device))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mels_up = torch.randn(B, T, mel, generator=gen, device=device)
+    aux_in = torch.randn(B, T, 4 * aux, generator=gen, device=device)
     return w, *wavernn_sampler.precompute_streams(w, mels_up, aux_in)
 
 
+@pytest.mark.parametrize("greedy", [True, False])
+def test_wavernn_padding_to_float4_changes_no_draw(greedy):
+    """The kernel reads rows as float4, so the wrapper zero-pads R and F to
+    multiples of 4: the plain version on the padded weights and streams
+    draws what it draws on the originals, each draw the best of its step."""
+    w, streams, tc = _wavernn(3, 24, 18, 14, 64, device="cpu")
+    wp, sp = wavernn_sampler.pad_to_float4(w, streams)
+    assert wp.dims == (20, 16, 64) and [s.shape[-1] for s in sp] == [20, 60, 16, 16]
+    got = wavernn_sampler.sample_reference(wp, sp, tc, greedy=greedy, seed=3)
+    assert len(torch.unique(got)) > 3
+    gap = wavernn_sampler.score_gap(w, streams, tc, got, greedy=greedy, seed=3)
+    assert float(gap.abs().max()) <= 1e-5
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,R,F,C", [(2, 40, 16, 16, 128), (7, 300, 32, 48, 256), (5, 512, 512, 512, 512)])
+@pytest.mark.parametrize("B,T,R,F,C", [(2, 40, 16, 16, 128), (7, 300, 32, 48, 256), (5, 512, 512, 512, 512),
+                                       (3, 100, 18, 14, 128)])
 @pytest.mark.parametrize("greedy", [True, False])
 def test_wavernn_sampler_matches_reference(B, T, R, F, C, greedy):
     _need_cuda()
@@ -135,6 +169,43 @@ def test_wavernn_sampler_matches_reference(B, T, R, F, C, greedy):
     assert float(gap.max()) <= 1e-4
     assert float(gap.min()) >= 0.0
     assert len(torch.unique(got)) > 10  # the draw moves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("greedy", [True, False])
+def test_wavernn_sampler_splits_a_large_batch(greedy):
+    """More rows than one launch takes, at the served widths: the wrapper
+    splits them over ⌈B / rows_per_launch⌉ launches, noise keyed by the row's
+    index in the whole batch, and the plain version holds every draw."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pl = wavernn_sampler.plan(512, 512, 512, torch.cuda.get_device_properties(0).multi_processor_count)
+    B = pl.rows_per_launch + 3
+    w, streams, tc = _wavernn(B, 512, 512, 512, 512)
+    before = wavernn_sampler.launches
+    got = wavernn_sampler.sample(w, streams, tc, greedy=greedy, seed=11)
+    torch.cuda.synchronize()
+    assert wavernn_sampler.launches == before + math.ceil(B / pl.rows_per_launch)
+    gap = wavernn_sampler.score_gap(w, streams, tc, got, greedy=greedy, seed=11)
+    assert float(gap.max()) <= 1e-4
+    assert float(gap.min()) >= 0.0
+
+
+@pytest.mark.cuda
+def test_wavernn_sampler_global_weights():
+    """A width whose weight share does not fit in a block's shared memory:
+    the same kernel reads its weight rows from global memory."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w, streams, tc = _wavernn(2, 64, 1024, 1024, 512)
+    assert not wavernn_sampler.device_plan(w, streams[0].device).weights_shared
+    before = wavernn_sampler.launches
+    got = wavernn_sampler.sample(w, streams, tc, greedy=False, seed=5)
+    torch.cuda.synchronize()
+    assert wavernn_sampler.launches == before + 1
+    gap = wavernn_sampler.score_gap(w, streams, tc, got, greedy=False, seed=5)
+    assert float(gap.max()) <= 1e-4
+    assert float(gap.min()) >= 0.0
 
 
 @pytest.mark.cuda
@@ -156,3 +227,17 @@ def test_wavernn_sampler_rejects_bad_input():
     w.fc3 = w.fc3.cpu()
     with pytest.raises(ValueError):  # weights on another device
         wavernn_sampler.sample(w, streams, tc)
+
+
+@pytest.mark.cuda
+def test_wavernn_plan_matches_the_kernel_layout():
+    """The plan's shared memory is the kernel's own layout, and the kernel's
+    blocks fit on the card at the grid the plan gives."""
+    _need_cuda()
+    lib = wavernn_sampler._kernel()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for R, F, C in ((512, 512, 512), (1024, 1024, 512), (16, 16, 128), (32, 48, 256)):
+        pl = wavernn_sampler.plan(R, F, C, n_sm)
+        assert pl.grid <= n_sm
+        for rows in (1, 5, pl.rows_per_launch):
+            assert lib.wavernn_smem_bytes(rows, R, F, C, pl.grid, int(pl.weights_shared)) == pl.smem_bytes(rows)

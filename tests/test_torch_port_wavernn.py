@@ -12,6 +12,7 @@ on the JAX side, carried into the port through `params_from_flax`:
 - `Wavernn.inference` against JAX `inference(use_pallas=True)`, folded and
   not, waveform within 1e-5;
 - the teacher-forced check that holds the kernel to the plain version;
+- a batch split by row offset draws what the whole batch draws;
 - the weight bridge back through the JAX package's converter.
 """
 
@@ -73,6 +74,22 @@ def test_score_gap_holds_draws_to_their_step(models, greedy):
     moved[1, 9] = -own[1, 9] if own[1, 9] != 0 else 1.0
     gap = wavernn_sampler.score_gap(w, streams, tc, moved, greedy=greedy, seed=2)
     assert float(gap[1, 9]) > 1e-3 and float(gap[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_sampler_split_by_row_offset_equals_whole_batch(models, greedy):
+    """A batch split into consecutive chunks, each drawn with `row0` at its
+    first row's index, gives what the whole batch gives, row for row: the
+    kernel's wrapper splits a batch of any size over launches this way."""
+    _, pm = models
+    mels_up, aux = _streams(B=5, T=16, seed=6)
+    w = wavernn_sampler.pack_weights(pm.net)
+    streams, tc = wavernn_sampler.precompute_streams(w, torch.from_numpy(mels_up), torch.from_numpy(aux), 8)
+    whole = wavernn_sampler.sample_reference(w, streams, tc, greedy=greedy, seed=7)
+    parts = [wavernn_sampler.sample_reference(w, tuple(s[b0:b1] for s in streams), tc, greedy=greedy, seed=7, row0=b0)
+             for b0, b1 in ((0, 2), (2, 4), (4, 5))]
+    assert len(torch.unique(whole)) > 3
+    assert torch.equal(torch.cat(parts), whole)
 
 
 def test_upsample_and_cell_match_jax(models):

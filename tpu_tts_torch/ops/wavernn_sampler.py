@@ -10,20 +10,25 @@ matrix products and zero-padded to a multiple of the time chunk, as in
 `_run`; the padded steps run too and are cut afterwards.
 
 Random numbers are the JAX kernel's interpret-mode counter hash, keyed by
-(seed, t // time_chunk, t % time_chunk, class, row), so the plain version on
-the CPU draws what the JAX package draws in interpret mode for the same seed;
-the TPU's on-core generator cannot be matched.
+(seed, t // time_chunk, t % time_chunk, class, row of the whole batch), so
+the plain version on the CPU draws what the JAX package draws in interpret
+mode for the same seed; the TPU's on-core generator cannot be matched.
 
 Weights are packed from the port's `WavernnNet` (torch GRU/Linear layout,
-`[out, in]`) at each `Wavernn.inference` call, a few copies on the device;
-that layout is also the kernel's: the dot product of one output column
-reads one contiguous row. `sample` takes the
+`[out, in]`) at each `Wavernn.inference` call; that layout is also the
+kernel's: the dot product of one output column reads one contiguous row.
+Each launch loads every block's share of the loop weights into that block's
+shared memory once and keeps it there for the whole decode (`plan`); a batch
+of more rows than fit beside them is split over launches. The kernel reads
+rows as float4; other widths are zero-padded to a multiple of 4 on the way
+in (`pad_to_float4`), which changes no draw. `sample` takes the
 kernel for CUDA tensors and the plain version for CPU tensors; nothing else
 chooses between them.
 """
 
 import ctypes
-from dataclasses import dataclass, fields
+import math
+from dataclasses import dataclass, fields, replace
 from typing import Optional, Tuple
 
 import torch
@@ -130,11 +135,12 @@ def _mul32(h: torch.Tensor, m: int) -> torch.Tensor:
     return (lo + (hi << 16)) & 0xFFFFFFFF
 
 
-def gumbel_noise(seed: int, T: int, time_chunk: int, B: int, C: int, device) -> torch.Tensor:
-    """`[B, T, C]` Gumbel noise of steps 0..T−1: the JAX kernel's portable
-    hash (wavernn_pallas.py:116-130), then g = −log(−log(u + 1e-12) + 1e-12)."""
+def gumbel_noise(seed: int, T: int, time_chunk: int, B: int, C: int, device, row0: int = 0) -> torch.Tensor:
+    """`[B, T, C]` Gumbel noise of steps 0..T−1 for rows row0..row0+B−1 of
+    the whole batch: the JAX kernel's portable hash (wavernn_pallas.py:116-130),
+    then g = −log(−log(u + 1e-12) + 1e-12)."""
     t = torch.arange(T, dtype=torch.int64, device=device)[None, :, None]
-    row = torch.arange(B, dtype=torch.int64, device=device)[:, None, None]
+    row = torch.arange(row0, row0 + B, dtype=torch.int64, device=device)[:, None, None]
     lane = torch.arange(C, dtype=torch.int64, device=device)[None, None, :]
     h = (seed + (t // time_chunk) * 65521 + (t % time_chunk) * 2654435761 + lane * 40503 + row * 69069) & 0xFFFFFFFF
     h = h ^ (h >> 16)
@@ -156,9 +162,12 @@ def _gru(h, xi, w_h, w_hn, b_hn):
 
 
 def sample_reference(w: WavernnWeights, streams, time_chunk: int, greedy: bool = False, seed: int = 0,
-                     teacher: Optional[torch.Tensor] = None, return_scores: bool = False):
+                     teacher: Optional[torch.Tensor] = None, return_scores: bool = False, row0: int = 0):
     """Plain PyTorch version of the loop: streams `[B, T_pad, ·]` → samples
-    `[B, T_pad]` in [−1, 1]. With `teacher` `[B, T_pad]`, step t takes
+    `[B, T_pad]` in [−1, 1]. The streams are rows row0..row0+B−1 of a
+    larger batch (the noise is keyed by the row's index in that batch), so
+    a batch split into consecutive chunks draws what it draws whole. With
+    `teacher` `[B, T_pad]`, step t takes
     teacher[:, t−1] as the previous sample instead of its own draw (the
     draw is still returned); with `return_scores`, also the scores
     (logits + noise) `[B, T_pad, C]` of every step."""
@@ -170,7 +179,7 @@ def sample_reference(w: WavernnWeights, streams, time_chunk: int, greedy: bool =
     prev = pre1.new_zeros(B, 1)
     out = pre1.new_empty(B, T)
     scores = pre1.new_empty(B, T, C) if return_scores else None
-    noise = None if greedy else gumbel_noise(seed, T, time_chunk, B, C, pre1.device)
+    noise = None if greedy else gumbel_noise(seed, T, time_chunk, B, C, pre1.device, row0)
     for t in range(T):
         x = prev * w.w_s + pre1[:, t]
         h1 = _gru(h1, x @ w.w1_i.t() + w.b1, w.w1_h, w.w1_hn, w.b1_hn)
@@ -203,14 +212,70 @@ def score_gap(w: WavernnWeights, streams, time_chunk: int, samples: torch.Tensor
 
 
 def sample(w: WavernnWeights, streams, time_chunk: int, greedy: bool = False, seed: int = 0) -> torch.Tensor:
-    """The sampling loop: the CUDA kernel for CUDA streams, the plain version
-    for CPU streams. Returns `[B, T_pad]`."""
+    """The sampling loop: the CUDA kernel for CUDA streams (one launch for
+    every `rows_per_launch` rows), the plain version for CPU streams. Returns
+    `[B, T_pad]`."""
     dev = streams[0].device
     if dev.type == "cpu":
         return sample_reference(w, streams, time_chunk, greedy, seed)
     if dev.type != "cuda":
         raise ValueError(f"the WaveRNN sampler runs on cuda or cpu tensors, got {dev}")
     return _sample_cuda(w, streams, time_chunk, greedy, seed)
+
+
+# Output columns a block takes in the widest phase: the grid is
+# ⌈max(R, F, C) / COLS⌉ blocks (at most one a streaming multiprocessor).
+COLS = 4
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How K2 runs at widths (R, F, C) on a card with a given number of SMs.
+
+    Block g owns columns g·nR … of both GRUs, g·nF … of fc1 and fc2 and
+    g·nC … of fc3 for the whole launch. With `weights_shared` it holds those
+    columns' weight rows in shared memory (loaded once a launch) beside the
+    staged input vectors of every row; else it reads them from global memory.
+    `rows_per_launch` is the most batch rows whose staging fits beside them.
+    The layout is `smem_bytes` of csrc/wavernn_sampler.cu."""
+
+    R: int
+    F: int
+    C: int
+    grid: int
+    weights_shared: bool
+    rows_per_launch: int
+
+    @property
+    def cols(self) -> Tuple[int, int, int]:
+        """(nR, nF, nC): columns of each phase a block owns."""
+        return tuple(-(-n // self.grid) for n in (self.R, self.F, self.C))
+
+    def weight_floats(self) -> int:
+        nR, nF, nC = self.cols
+        return nR * 12 * self.R + nF * (self.R + self.F) + nC * self.F
+
+    def smem_bytes(self, rows: int) -> int:
+        """One block's dynamic shared memory for a launch of `rows` rows:
+        the weights (when held), x and h staging `[rows, max(R, F)]` each,
+        the previous samples (rounded up to whole float4)."""
+        floats = 2 * rows * max(self.R, self.F) + -(-rows // 4) * 4
+        return 4 * (floats + (self.weight_floats() if self.weights_shared else 0))
+
+
+def plan(R: int, F: int, C: int, n_sm: int) -> Plan:
+    """The launch plan (pure arithmetic; see `Plan`): weights in shared
+    memory when a block's share fits beside at least one row of staging,
+    else in global memory with the same dot products."""
+    grid = min(-(-max(R, F, C) // COLS), n_sm)
+    for shared in (True, False):
+        p = Plan(R, F, C, grid, shared, 0)
+        rows = (build.SMEM_LIMIT // 4 - (p.weight_floats() if shared else 0)) // (2 * max(R, F) + 1)
+        while rows > 0 and p.smem_bytes(rows) > build.SMEM_LIMIT:
+            rows -= 1
+        if rows > 0:
+            return Plan(R, F, C, grid, shared, rows)
+    raise ValueError(f"R={R}, F={F}: not one batch row fits in a block's shared memory")
 
 
 _lib = None
@@ -221,14 +286,27 @@ def _kernel():
     if _lib is None:
         lib = build.load("wavernn_sampler")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.wavernn_sample.argtypes = [p] * 24 + [i] * 7 + [ctypes.c_uint, p]
+        lib.wavernn_sample.argtypes = [p] * 24 + [i] * 7 + [ctypes.c_uint] + [i] * 3 + [p]
         lib.wavernn_sample.restype = ctypes.c_int
-        lib.wavernn_smem_bytes.argtypes = [i, i, i]
+        lib.wavernn_smem_bytes.argtypes = [i] * 6
         lib.wavernn_smem_bytes.restype = ctypes.c_size_t
+        lib.wavernn_barrier_probe.argtypes = [i, i, ctypes.c_size_t, p]
+        lib.wavernn_barrier_probe.restype = ctypes.c_int
         lib.wavernn_error_string.argtypes = [i]
         lib.wavernn_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def device_plan(w: WavernnWeights, device) -> Plan:
+    """`plan` for `w`'s widths on the card `device`."""
+    R, F_, C = w.dims
+    return plan(R, F_, C, torch.cuda.get_device_properties(device).multi_processor_count)
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err} ({_kernel().wavernn_error_string(err).decode()})")
 
 
 def _check(w: WavernnWeights, streams, time_chunk: int):
@@ -251,29 +329,72 @@ def _check(w: WavernnWeights, streams, time_chunk: int):
             raise ValueError(f"weight {f.name} must be contiguous float32 on {pre1.device} (pack_weights, then .to)")
 
 
+def pad_to_float4(w: WavernnWeights, streams):
+    """`w` and the streams with R and F zero-padded to multiples of 4, as the
+    kernel reads its rows as float4. A padded unit has zero weights, biases
+    and inputs, so its GRU state, x, f1 and f2 stay 0 and it adds nothing to
+    any sum: the draws do not change."""
+    R, F_, _ = w.dims
+    dR, dF = -R % 4, -F_ % 4
+    if not (dR or dF):
+        return w, streams
+
+    def grow(t, gates, d_out, d_in=None):  # [gates·n(, k)] → [gates·(n + d_out)(, k + d_in)]
+        t = t.reshape(gates, -1, *t.shape[1:])
+        t = F.pad(t, (0, d_out) if d_in is None else (0, d_in, 0, d_out))
+        return t.reshape(-1, *t.shape[2:]).contiguous()
+
+    loop = dict(
+        w_s=grow(w.w_s, 1, dR), w1_i=grow(w.w1_i, 3, dR, dR), b1=grow(w.b1, 3, dR), w1_h=grow(w.w1_h, 2, dR, dR),
+        w1_hn=grow(w.w1_hn, 1, dR, dR), b1_hn=grow(w.b1_hn, 1, dR), w2_ix=grow(w.w2_ix, 3, dR, dR),
+        w2_h=grow(w.w2_h, 2, dR, dR), w2_hn=grow(w.w2_hn, 1, dR, dR), b2_hn=grow(w.b2_hn, 1, dR),
+        fc1=grow(w.fc1, 1, dF, dR), fc2=grow(w.fc2, 1, dF, dF), fc3=grow(w.fc3, 1, 0, dF))
+    B, T, _ = streams[0].shape
+    padded = tuple(F.pad(s.reshape(B, T, gates, -1), (0, d)).reshape(B, T, -1).contiguous()
+                   for s, gates, d in zip(streams, (1, 3, 1, 1), (dR, dR, dF, dF)))
+    return replace(w, **loop), padded
+
+
 def _sample_cuda(w: WavernnWeights, streams, time_chunk: int, greedy: bool, seed: int) -> torch.Tensor:
+    """One cooperative launch for each chunk of at most `rows_per_launch`
+    consecutive rows (chunks of equal size, give or take one), each on its
+    rows' slices of the streams and of `out`, its noise keyed by the row's
+    index in the whole batch."""
     global launches
     _check(w, streams, time_chunk)
+    w, streams = pad_to_float4(w, streams)
     lib = _kernel()
     R, F_, C = w.dims
-    pre1 = streams[0]
-    B, T, _ = pre1.shape
-    if lib.wavernn_smem_bytes(B, R, F_) > build.SMEM_LIMIT:
-        raise ValueError(f"a batch of {B} rows at R={R}, F={F_} does not fit in one block's shared memory")
-    h1 = torch.zeros(2, B, R, device=pre1.device)
-    h2 = torch.zeros(2, B, R, device=pre1.device)
-    f1 = torch.empty(B, F_, device=pre1.device)
-    f2 = torch.empty(B, F_, device=pre1.device)
-    scores = torch.empty(B, C, device=pre1.device)
-    out = torch.empty(B, T, device=pre1.device)
-    ptrs = [s.data_ptr() for s in streams] + [
-        t.data_ptr() for t in (w.w_s, w.w1_i, w.b1, w.w1_h, w.w1_hn, w.b1_hn, w.w2_ix, w.w2_h, w.w2_hn,
-                               w.b2_hn, w.fc1, w.fc2, w.fc3, w.b3, h1, h2, f1, f2, scores, out)
-    ]
-    stream = torch.cuda.current_stream(pre1.device).cuda_stream
-    err = lib.wavernn_sample(*ptrs, B, T, R, F_, C, time_chunk, int(greedy), seed & 0xFFFFFFFF, stream)
-    if err != 0:
-        raise RuntimeError(f"wavernn_sample launch failed: cudaError {err} "
-                           f"({lib.wavernn_error_string(err).decode()})")
-    launches += 1
+    B, T, _ = streams[0].shape
+    dev = streams[0].device
+    out = torch.empty(B, T, device=dev)
+    if B == 0:
+        return out
+    pl = device_plan(w, dev)
+    rows = math.ceil(B / math.ceil(B / pl.rows_per_launch))
+    weights = [t.data_ptr() for t in (w.w_s, w.w1_i, w.b1, w.w1_h, w.w1_hn, w.b1_hn, w.w2_ix, w.w2_h, w.w2_hn,
+                                      w.b2_hn, w.fc1, w.fc2, w.fc3, w.b3)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for b0 in range(0, B, rows):
+        nb = min(rows, B - b0)
+        h1 = torch.zeros(2, nb, R, device=dev)  # double-buffered state, buffer 0 zero on entry
+        h2 = torch.zeros(2, nb, R, device=dev)
+        scratch = [h1, h2, torch.empty(nb, F_, device=dev), torch.empty(nb, F_, device=dev),
+                   torch.empty(nb, C, device=dev), out[b0 : b0 + nb]]
+        err = lib.wavernn_sample(*[s[b0 : b0 + nb].data_ptr() for s in streams], *weights,
+                                 *[t.data_ptr() for t in scratch], nb, T, R, F_, C, time_chunk, int(greedy),
+                                 seed & 0xFFFFFFFF, b0, pl.grid, int(pl.weights_shared), stream)
+        _raise_on(err, "wavernn_sample")
+        launches += 1
     return out
+
+
+def barrier_probe(w: WavernnWeights, B: int, T: int, device) -> None:
+    """Launch the barrier probe of csrc/wavernn_sampler.cu: only the five
+    grid barriers a step of K2, for T steps, at the grid, block size and
+    shared memory K2 takes for B rows at `w`'s widths. Not counted in
+    `launches`; it samples nothing."""
+    pl = device_plan(w, device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _raise_on(_kernel().wavernn_barrier_probe(T, pl.grid, pl.smem_bytes(min(B, pl.rows_per_launch)), stream),
+              "wavernn_barrier_probe")
