@@ -9,9 +9,13 @@ result line:
 1. card: `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`;
 2. build: every CUDA kernel of the port, from `tpu_tts_torch/csrc/`, one nvcc
    per source, all started together;
-3. K1 (`hifigan_mrf`) against its plain PyTorch version at the four VITS
-   stage shapes, in float32 and bfloat16, with its time, the plain version's
-   time and the least time the card could take (CUDA events);
+3. K1 (`hifigan_mrf`): the count of tensor-core instructions in its SASS
+   (`kernel hifigan_mrf sass:`, cuobjdump; it fails without any), then the
+   kernel against its plain PyTorch version at the four VITS stage shapes,
+   in float32 and bfloat16, with the planned tile and launches of each
+   shape, its time, the plain version's time and the least time the card
+   could take on the kernel's route (3×TF32 for float32, bf16 tensor cores
+   for bfloat16) and on the CUDA cores (CUDA events);
 4. K2 (`wavernn_sampler`) against its plain version at the served shape
    (B = 5 folds, T = 11776 steps, R = F = C = 512), greedy and sampled: the
    plain version, teacher-forced with the kernel's samples, recomputes every
@@ -57,9 +61,9 @@ import urllib.error
 import urllib.parse
 import urllib.request
 
-# Published H100 SXM peaks (dense): float32 outside the tensor cores, bf16
-# tensor cores, HBM3 bandwidth.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# Published H100 SXM peaks (dense): float32 outside the tensor cores, TF32
+# and bf16 tensor cores, HBM3 bandwidth.
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 
 TEXTS = [
@@ -128,7 +132,9 @@ def mrf_stage_inputs(C: int, T: int, dtype, gen):
 
 def mrf_work(stage, B: int, C: int, T: int, dtype) -> dict:
     """Operations and bytes of one MRF stack: 2·C² MACs per tap, input,
-    weights and biases read once, output written once."""
+    weights and biases read once, output written once. `bound_ms` is for the
+    kernel's route: float32 as three TF32 tensor-core passes, bfloat16 on the
+    bf16 tensor cores; `bound_cuda_core_ms` is float32 on the CUDA cores."""
     import torch
 
     taps = sum(2 * u.k for units in stage.blocks for u in units)
@@ -136,25 +142,35 @@ def mrf_work(stage, B: int, C: int, T: int, dtype) -> dict:
     item = torch.finfo(dtype).bits // 8
     weight_bytes = sum((u.w1.numel() + u.w2.numel()) * item + 8 * C for units in stage.blocks for u in units)
     nbytes = 2.0 * B * C * T * item + weight_bytes
-    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
-    bound = max(flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES) * 1e3
-    return {"flops": flops, "bytes": nbytes, "bound_ms": bound,
-            "bound_by": "operations" if flops / PEAK_FLOPS[name] >= nbytes / PEAK_BYTES else "bytes"}
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = flops / PEAK_FLOPS["bfloat16"] if dtype == torch.bfloat16 else 3 * flops / PEAK_FLOPS["tf32"]
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_cuda_core_ms": max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3}
 
 
-def check_mrf_kernel() -> dict:
-    """K1 against `mrf_stack_reference` at the four VITS stage shapes."""
+def check_mrf_kernel() -> tuple:
+    """K1's tensor-core instructions, then K1 against `mrf_stack_reference`
+    at the four VITS stage shapes: (rows, sass counts)."""
     import torch
 
-    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.ops import build, hifigan_mrf
 
+    sass = build.sass_counts("hifigan_mrf")
+    log(f"kernel hifigan_mrf sass: {json.dumps(sass)}")
+    if sass["HMMA.TF32"] + sass["HGMMA.TF32"] == 0:
+        raise AssertionError(f"hifigan_mrf holds no TF32 tensor-core instruction: {sass}")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for C, up in ((256, 8), (128, 64), (64, 128), (32, 256)):
             T = MEL_FRAMES * up
             x, stage = mrf_stage_inputs(C, T, dtype, gen)
+            pl = hifigan_mrf.plan(1, C, T, n_sm)
+            before = hifigan_mrf.launches
             got = hifigan_mrf.mrf_stack(x, stage)
+            n_launch = hifigan_mrf.launches - before
             ref = hifigan_mrf.mrf_stack_reference(x, stage)
             torch.cuda.synchronize()
             err = float((got.float() - ref.float()).abs().max())
@@ -165,14 +181,19 @@ def check_mrf_kernel() -> dict:
             plain_ms = cuda_ms(lambda: hifigan_mrf.mrf_stack_reference(x, stage), 5)
             work = mrf_work(stage, 1, C, T, dtype)
             row = {"dtype": str(dtype).replace("torch.", ""), "C": C, "T": T, "max_abs_err": err, "tol": tol,
-                   "max_abs_ref": scale, "ms": ms, "plain_ms": plain_ms, **work}
+                   "max_abs_ref": scale, "tile": list(pl.shape), "grid": list(pl.grid), "launches": n_launch,
+                   "ms": ms, "plain_ms": plain_ms, **work}
             rows.append(row)
-            log(f"kernel hifigan_mrf {row['dtype']} C={C} T={T}: max_abs_err={err:.3e} (tol {tol:.3e}) "
-                f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={work['bound_ms']:.4f} ({work['bound_by']})")
+            log(f"kernel hifigan_mrf {row['dtype']} C={C} T={T}: tile={pl.shape[0]}x{pl.shape[1]} "
+                f"grid={pl.grid} launches={n_launch} max_abs_err={err:.3e} (tol {tol:.3e}) "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={work['bound_ms']:.4f} ({work['bound_by']}) "
+                f"bound_cuda_core_ms={work['bound_cuda_core_ms']:.4f}")
+            if n_launch != hifigan_mrf.launches_per_stage(stage):
+                raise AssertionError(f"hifigan_mrf took {n_launch} launches for one stage")
             if not ok:
                 raise AssertionError(f"hifigan_mrf disagrees with its plain version at {row['dtype']} C={C}: {err} > {tol}")
     log("kernel hifigan_mrf library_ms: none (no single PyTorch call computes the MRF stack)")
-    return rows
+    return rows, sass
 
 
 def wavernn_work(w, B: int, T: int) -> dict:
@@ -510,7 +531,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(["hifigan_mrf", "wavernn_sampler"])
     log(f"build: hifigan_mrf, wavernn_sampler in {time.perf_counter() - t0:.1f} s")
-    rows = check_mrf_kernel()
+    rows, sass = check_mrf_kernel()
     k2_rows = check_wavernn_kernel()
     with tempfile.TemporaryDirectory() as tmp:
         mrf_launches = serve_and_check(save_model(tmp), hifigan_mrf, check=check_against_plain)
@@ -531,7 +552,9 @@ def main() -> int:
         "plain_ms": sum(r["plain_ms"] for r in f32),
         "bound_ms": sum(r["bound_ms"] for r in f32),
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in f32) else "bytes",
+        "bound_cuda_core_ms": sum(r["bound_cuda_core_ms"] for r in f32),
         "library_ms": None,  # no single PyTorch call computes the MRF stack
+        "sass": sass,
         "shapes": rows,
     }, {
         "name": "wavernn_sampler",

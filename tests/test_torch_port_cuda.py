@@ -17,7 +17,7 @@ import math
 import pytest
 import torch
 
-from tpu_tts_torch.ops import hifigan_mrf, wavernn_sampler
+from tpu_tts_torch.ops import build, hifigan_mrf, wavernn_sampler
 
 torch.set_num_threads(1)
 
@@ -45,8 +45,8 @@ def _need_cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,T,B", [(32, 1000, 2), (64, 333, 1), (128, 77, 2), (256, 130, 1)])
 def test_mrf_kernel_matches_reference_f32(C, T, B):
-    """Ragged T, every cluster size the plan picks at these shapes; 2e-4 as
-    tests/test_hifigan_pallas.py."""
+    """Ragged T, a batch of 2; 2e-4 as tests/test_hifigan_pallas.py. Two
+    launches a dilation unit."""
     _need_cuda()
     gen = torch.Generator().manual_seed(C)
     stage = _stage(C, (3, 7, 11), ((1, 3, 5),) * 3, gen, "cuda")
@@ -55,7 +55,23 @@ def test_mrf_kernel_matches_reference_f32(C, T, B):
     got = hifigan_mrf.mrf_stack(x, stage)
     ref = hifigan_mrf.mrf_stack_reference(x, stage)
     torch.cuda.synchronize()
-    assert hifigan_mrf.launches == before + 9
+    assert hifigan_mrf.launches == before + 18
+    assert float((got - ref).abs().max()) <= 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,T", [(256, 256), (128, 2048), (64, 4096), (32, 8192), (64, 50), (256, 7)])
+def test_mrf_kernel_vits_stage_shapes(C, T):
+    """The four VITS stage widths at 32 mel frames (each stage's plan), and
+    a ragged T shorter than one time tile; float32 within 2e-4."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(T)
+    stage = _stage(C, (3, 7, 11), ((1, 3, 5),) * 3, gen, "cuda")
+    x = torch.randn(1, C, T, generator=gen).cuda()
+    got = hifigan_mrf.mrf_stack(x, stage)
+    ref = hifigan_mrf.mrf_stack_reference(x, stage)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
     assert float((got - ref).abs().max()) <= 2e-4
 
 
@@ -86,23 +102,44 @@ def test_mrf_kernel_rejects_bad_input():
         hifigan_mrf.mrf_stack(torch.randn(1, 32, 100, device="cuda"), _stage(32, (3,), ((1,),), gen, "cpu"))
 
 
-def test_mrf_plan_fills_the_card_within_shared_memory():
-    """The launch plan at the VITS stage shapes: every SM gets a block, the
-    first conv's output fills whole warp tiles, one pass of warp tiles."""
-    def smem(C, k, d):  # the bound the plan must respect, with the kernel's layout
-        return lambda tile, S: 4 * (C * (tile + (k - 1) * (d + 1)) + C * (tile + k - 1) + 72) + 2 * 8 * k * (C // S) * 4
+@pytest.mark.cuda
+def test_mrf_kernel_runs_on_the_tensor_cores():
+    """The built MRF kernel holds tensor-core instructions with TF32 operands."""
+    _need_cuda()
+    counts = build.sass_counts("hifigan_mrf")
+    assert counts["HMMA.TF32"] + counts["HGMMA.TF32"] > 0, counts
 
+
+@pytest.mark.cuda
+def test_mrf_plan_matches_the_kernel_layout():
+    """The plan's shared memory is the kernel's own, for every tile and type."""
+    _need_cuda()
+    lib = hifigan_mrf._kernel()
+    for bn in hifigan_mrf.BN_CHOICES:
+        for bf16 in (False, True):
+            assert lib.hifigan_mrf_smem_bytes(bn, int(bf16)) == hifigan_mrf.smem_bytes(bn, bf16)
+    assert lib.hifigan_mrf_smem_bytes(48, 0) == 0
+
+
+def test_mrf_plan_fills_the_card_within_shared_memory():
+    """The launch plan at the VITS stage shapes: every tile fits in a
+    block's shared memory, the tile divides C, and at 256 mel frames (B = 1
+    and 2) the grid leaves at most n_sm/32 SMs without a block."""
+    n_sm = 132
+    for bn in hifigan_mrf.BN_CHOICES:
+        for bf16 in (False, True):
+            assert hifigan_mrf.smem_bytes(bn, bf16) <= build.SMEM_LIMIT
     for C, up in ((256, 8), (128, 64), (64, 128), (32, 256)):
-        T = 256 * up
-        for k in (3, 7, 11):
-            for d in (1, 3, 5):
-                tile, S = hifigan_mrf.plan(1, C, T, k, d, 132, smem(C, k, d))
-                assert (tile + k - 1) % 32 == 0 and C % (32 * S) == 0
-                assert math.ceil(T / tile) * S >= 132
-                assert smem(C, k, d)(tile, S) <= hifigan_mrf.SMEM_LIMIT
-                assert (C // S // 32) * ((tile + k - 1) // 32) <= hifigan_mrf.MAX_ITEMS
+        for B, frames in ((1, 256), (2, 256), (1, 384)):
+            T = frames * up
+            pl = hifigan_mrf.plan(B, C, T, n_sm)
+            BM, BN = pl.shape
+            assert C % BN == 0 and pl.grid == (math.ceil(T / BM), C // BN, B)
+            if frames == 256:
+                assert pl.blocks >= n_sm - n_sm // 32
+    assert hifigan_mrf.plan(1, 32, 7, n_sm).blocks == 1
     with pytest.raises(ValueError):
-        hifigan_mrf.plan(1, 4096, 1000, 11, 5, 132, smem(4096, 11, 5))
+        hifigan_mrf.plan(1, 48, 1000, n_sm)
 
 
 def test_wavernn_plan_holds_the_weights_in_shared_memory():

@@ -74,3 +74,23 @@ def load(name: str) -> ctypes.CDLL:
     """The library built from `csrc/<name>.cu`, building it if needed."""
     lib = _libs.get(name)
     return lib if lib is not None else build_all([name])[name]
+
+
+def sass_counts(name: str) -> Dict[str, int]:
+    """Tensor-core instructions in the SASS of `lib<name>`, read with
+    cuobjdump from the built library: `HMMA` (mma.sync) and `HGMMA`
+    (wgmma), each also counted as `<opcode>.TF32` where its operands are
+    TF32."""
+    load(name)
+    cuobjdump = str(Path(find_nvcc()).parent / "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(_lib_path(name))], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts = {key: 0 for key in ("HMMA", "HMMA.TF32", "HGMMA", "HGMMA.TF32")}
+    for line in text.splitlines():
+        words = line.split("*/", 1)[1].split() if "*/" in line else []
+        op = next((w for w in words if not w.startswith("@")), "")
+        family = op.split(".", 1)[0]
+        if family in ("HMMA", "HGMMA"):
+            counts[family] += 1
+            counts[f"{family}.TF32"] += ".TF32" in op
+    return counts

@@ -10,12 +10,14 @@ bfloat16, taken from the packed weights as the Pallas wrapper does.
 
 What bounds it on the H100 and what the design does about it: see the note
 at the top of the CUDA source. In short, it is bound by arithmetic (≈ 0.6
-GFLOP per mel frame at the VITS widths); this first version runs float32
-FMAs on the CUDA cores, one launch per dilation unit (9 per VITS stage),
-because a whole resblock's halo in float32 at C = 256 does not fit in a
-block's shared memory; a thread-block cluster of S blocks shares one time
-tile when C is large and T short (`plan`). The stage mean is accumulated
-inside the kernel.
+GFLOP per mel frame at the VITS widths), so each conv is an implicit GEMM on
+the tensor cores (M = time, N = C_out, K = taps × C_in). float32 runs three
+TF32 passes (hi·hi + hi·lo + lo·hi, `tf32_split` below is the rounding bit
+for bit), which keeps float32's accuracy; bfloat16 runs one. A dilation
+unit is two launches (conv 1 into a float32 scratch, conv 2 with the
+residual and the stage mean), 18 per VITS stage; `plan` picks the output
+tile per stage shape. Each launch is a wgmma kernel: the weights reach
+shared memory by TMA, the activations are the register operand.
 
 Layout: channels-first `[B, C, T]`, the layout of the port's generator.
 `mrf_stack` takes the kernel for a CUDA tensor and the plain version for a
@@ -25,12 +27,10 @@ CPU tensor; nothing else chooses between them.
 import ctypes
 import math
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
-
-from tpu_tts_torch.ops.build import SMEM_LIMIT
 
 LRELU_SLOPE = 0.1
 
@@ -39,9 +39,28 @@ LRELU_SLOPE = 0.1
 launches = 0
 
 
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of a float32 tensor as the kernel splits it: hi = x rounded to
+    TF32 (10 mantissa bits, nearest, ties away from zero, the low 13 bits
+    zero, as `cvt.rna.tf32.f32`), lo = x − hi rounded the same way."""
+
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        # adding half of the dropped range to the magnitude bits rounds the
+        # magnitude to nearest, ties away from zero; a carry moves the exponent
+        r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+        return torch.where(torch.isfinite(v), r, v)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
 @dataclass
 class MrfUnit:
-    """One dilation unit; w1, w2 packed `[C_in, k, C_out]` in the working type."""
+    """One dilation unit. w1, w2: torch layout `[C_out, C_in, k]` in the
+    working type (the plain version's); w*_hi, w*_lo: the kernel's TF32 pair,
+    float32 `[k, C_out, C_in]` (lo is zero for bfloat16 weights)."""
 
     w1: torch.Tensor
     b1: torch.Tensor
@@ -49,6 +68,10 @@ class MrfUnit:
     b2: torch.Tensor
     k: int
     d: int
+    w1_hi: torch.Tensor
+    w1_lo: torch.Tensor
+    w2_hi: torch.Tensor
+    w2_lo: torch.Tensor
 
 
 @dataclass
@@ -66,6 +89,11 @@ class MrfStage:
         return self.blocks[0][0].w1.shape[0]
 
 
+def _kernel_pair(w: torch.Tensor):
+    hi, lo = tf32_split(w.permute(2, 0, 1))
+    return hi.contiguous(), lo.contiguous()
+
+
 def pack_stage(resblocks: Sequence[Sequence[tuple]], dtype: torch.dtype = torch.float32) -> MrfStage:
     """resblocks[b][u] = (w1 [C, C, k], b1 [C], w2 [C, C, k], b2 [C], d) with
     weight norm folded (torch layout `[C_out, C_in, k]`)."""
@@ -73,23 +101,23 @@ def pack_stage(resblocks: Sequence[Sequence[tuple]], dtype: torch.dtype = torch.
     for units in resblocks:
         packed = []
         for w1, b1, w2, b2, d in units:
+            w1 = w1.detach().to(dtype).contiguous()
+            w2 = w2.detach().to(dtype).contiguous()
+            w1_hi, w1_lo = _kernel_pair(w1)
+            w2_hi, w2_lo = _kernel_pair(w2)
             packed.append(
                 MrfUnit(
-                    w1=w1.detach().permute(1, 2, 0).to(dtype).contiguous(),
-                    b1=b1.detach().float().contiguous(),
-                    w2=w2.detach().permute(1, 2, 0).to(dtype).contiguous(),
-                    b2=b2.detach().float().contiguous(),
-                    k=int(w1.shape[-1]),
-                    d=int(d),
+                    w1=w1, b1=b1.detach().float().contiguous(), w2=w2, b2=b2.detach().float().contiguous(),
+                    k=int(w1.shape[-1]), d=int(d), w1_hi=w1_hi, w1_lo=w1_lo, w2_hi=w2_hi, w2_lo=w2_lo,
                 )
             )
         blocks.append(packed)
     return MrfStage(blocks)
 
 
-def _conv(h: torch.Tensor, w_packed: torch.Tensor, b: torch.Tensor, d: int) -> torch.Tensor:
-    k = w_packed.shape[1]
-    y = F.conv1d(h, w_packed.permute(2, 0, 1), padding=(k // 2) * d, dilation=d)
+def _conv(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int) -> torch.Tensor:
+    k = w.shape[-1]
+    y = F.conv1d(h, w, padding=(k // 2) * d, dilation=d)
     return (y.float() + b[None, :, None]).to(h.dtype)
 
 
@@ -116,34 +144,56 @@ def mrf_stack(x: torch.Tensor, stage: MrfStage) -> torch.Tensor:
     return _mrf_stack_cuda(x, stage)
 
 
-WARP_TILE = 32  # a warp tile of the kernel is 32 channels × 32 samples
-MAX_ITEMS = 2 * 8  # warp tiles a block holds at once (2 per warp); more take further passes
+# The kernel's output tile is BM time steps × BN output channels; a K step
+# is BK input channels of one tap, and a ring of STAGES weight tiles is kept
+# in shared memory (`Ring` in the CUDA source).
+BM, BK, STAGES = 128, 32, 4
+BN_CHOICES = (64, 32)
 
 
-def plan(B: int, C: int, T: int, k: int, d: int, n_sm: int, smem_bytes) -> tuple:
-    """(tile, S) of one launch. The tile is 32·m − (k − 1) samples, so the
-    first conv's output (tile + k − 1) fills m warp tiles exactly; S is the
-    cluster size sharing a tile. Takes the largest m (8 down to 1), then the
-    smallest S, that gives every SM a block within one pass of warp tiles and
-    a block's shared memory; failing that, the plan with the most blocks."""
+def smem_bytes(bn: int, bf16: bool) -> int:
+    """Shared memory of one launch: 1 KB for alignment, the ring of weight
+    tiles (BN rows × 32 floats, hi and lo for float32, each stage rounded up
+    to 1 KB) and its 2 × STAGES mbarriers."""
+    stage = (1 if bf16 else 2) * bn * BK * 4
+    return 1024 + STAGES * (-(-stage // 1024) * 1024) + 2 * 8 * STAGES
+
+
+def launches_per_stage(stage: MrfStage) -> int:
+    return 2 * sum(len(units) for units in stage.blocks)
+
+
+@dataclass
+class Plan:
+    bn: int
+    grid: Tuple[int, int, int]
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        """(BM, BN): time × output channels of a block."""
+        return BM, self.bn
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def plan(B: int, C: int, T: int, n_sm: int) -> Plan:
+    """The output tile of every launch of a stage. One block runs on an SM at
+    a time, so an SM is busy for about ⌈blocks / n_sm⌉ × BM·BN; the plan takes
+    the BN that makes that least, and of equal ones the wider (fewer re-reads
+    of the activations)."""
     best = None
-    for m in (8, 4, 2, 1):
-        tile = WARP_TILE * m - (k - 1)
-        if tile <= 0:
+    for bn in BN_CHOICES:
+        if C % bn:
             continue
-        for S in (1, 2, 4, 8):
-            if C % (WARP_TILE * S):
-                break
-            if (C // S // WARP_TILE) * m > MAX_ITEMS or smem_bytes(tile, S) > SMEM_LIMIT:
-                continue
-            blocks = B * math.ceil(T / tile) * S
-            if blocks >= n_sm:
-                return tile, S
-            if best is None or blocks > best[0]:
-                best = (blocks, tile, S)
+        grid = (math.ceil(T / BM), C // bn, B)
+        key = (math.ceil(grid[0] * grid[1] * grid[2] / n_sm) * bn, -bn)
+        if best is None or key < best[0]:
+            best = (key, Plan(bn, grid))
     if best is None:
-        raise ValueError(f"MRF unit with C={C}, k={k}, d={d} does not fit in one block")
-    return best[1], best[2]
+        raise ValueError(f"MRF kernel needs C % 32 == 0, got C={C}")
+    return best[1]
 
 
 _lib = None
@@ -156,9 +206,9 @@ def _kernel():
 
         lib = load("hifigan_mrf")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hifigan_mrf_unit.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
-        lib.hifigan_mrf_unit.restype = ctypes.c_int
-        lib.hifigan_mrf_smem_bytes.argtypes = [i, i, i, i, i, i]
+        lib.hifigan_mrf_conv.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, i, i, p]
+        lib.hifigan_mrf_conv.restype = ctypes.c_int
+        lib.hifigan_mrf_smem_bytes.argtypes = [i, i]
         lib.hifigan_mrf_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
@@ -176,8 +226,10 @@ def _check(stage: MrfStage, x: torch.Tensor):
         for u in units:
             if u.k % 2 == 0:
                 raise ValueError(f"MRF kernel needs odd kernel sizes, got k={u.k}")
-            for t, shape, dt in ((u.w1, (C, u.k, C), stage.dtype), (u.w2, (C, u.k, C), stage.dtype),
-                                 (u.b1, (C,), torch.float32), (u.b2, (C,), torch.float32)):
+            want = [((C, C, u.k), stage.dtype, u.w1), ((C, C, u.k), stage.dtype, u.w2),
+                    ((C,), torch.float32, u.b1), ((C,), torch.float32, u.b2)]
+            want += [((u.k, C, C), torch.float32, t) for t in (u.w1_hi, u.w1_lo, u.w2_hi, u.w2_lo)]
+            for shape, dt, t in want:
                 if t.device != x.device or tuple(t.shape) != shape or t.dtype != dt or not t.is_contiguous():
                     raise ValueError("MRF weights must be packed by pack_stage on the input's device")
 
@@ -190,11 +242,17 @@ def _mrf_stack_cuda(x: torch.Tensor, stage: MrfStage) -> torch.Tensor:
     B, C, T = x.shape
     n_blocks = len(stage.blocks)
     bufs = [torch.empty_like(x), torch.empty_like(x)]
+    mid = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     acc = torch.empty(x.shape, dtype=torch.float32, device=x.device) if n_blocks > 1 else None
     y = torch.empty_like(x)
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    pl = plan(B, C, T, torch.cuda.get_device_properties(x.device).multi_processor_count)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     is_bf16 = int(stage.dtype == torch.bfloat16)
+    inv_n = 1.0 / n_blocks
+
+    def ptr(t: Optional[torch.Tensor]):
+        return t.data_ptr() if t is not None else None
+
     for bi, units in enumerate(stage.blocks):
         cur = x
         for ui, u in enumerate(units):
@@ -202,16 +260,13 @@ def _mrf_stack_cuda(x: torch.Tensor, stage: MrfStage) -> torch.Tensor:
                 mode, h_out = 0, bufs[ui % 2]
             else:
                 mode, h_out = (4 if n_blocks == 1 else 1 if bi == 0 else 3 if bi == n_blocks - 1 else 2), None
-            tile, S = plan(B, C, T, u.k, u.d, n_sm,
-                           lambda tile, S: lib.hifigan_mrf_smem_bytes(C, u.k, u.d, tile, S, is_bf16))
-            err = lib.hifigan_mrf_unit(
-                cur.data_ptr(), u.w1.data_ptr(), u.b1.data_ptr(), u.w2.data_ptr(), u.b2.data_ptr(),
-                h_out.data_ptr() if h_out is not None else None,
-                acc.data_ptr() if acc is not None else None,
-                y.data_ptr(), B, C, T, u.k, u.d, tile, S, mode, 1.0 / n_blocks, is_bf16, stream,
-            )
-            if err != 0:
-                raise RuntimeError(f"hifigan_mrf_unit launch failed: cudaError {err}")
-            launches += 1
+            for conv, src, w_hi, w_lo, bias, d in ((1, cur, u.w1_hi, u.w1_lo, u.b1, u.d),
+                                                   (2, mid, u.w2_hi, u.w2_lo, u.b2, 1)):
+                err = lib.hifigan_mrf_conv(ptr(src), ptr(cur), ptr(w_hi), ptr(w_lo), ptr(bias), ptr(mid), ptr(h_out),
+                                           ptr(acc), ptr(y), B, C, T, u.k, d, conv, mode, inv_n, pl.bn, is_bf16,
+                                           stream)
+                if err != 0:
+                    raise RuntimeError(f"hifigan_mrf_conv launch failed: error {err}")
+                launches += 1
             cur = h_out
     return y
