@@ -38,10 +38,25 @@ result line:
    WaveRNN (9-bit mu-law) with random weights from a seed, served the same
    way with `--vocoder_path`; the same three requests and checks, each
    sentence required to launch K2 once; a profile of one request;
-7. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
+7. K1 at B = 8: the four VITS stage shapes at BATCH_MEL_FRAMES mel frames a
+   row, float32 against the plain version, with tile, blocks, launches,
+   times and bound as in phase 3;
+8. VITS batched serving: the full-width VITS with the English phoneme front
+   end (`en_rules`), saved as a Coqui-format checkpoint, served through the
+   micro-batcher: 8 concurrent requests of 15 sentences in all, each reply
+   checked (HTTP 200, a WAV body, not silent, the length the batch's
+   per-row `y_lengths` give), fewer batches than requests and 72 K1
+   launches per inference call; then the same 8 requests one after another
+   on the locked path; the seconds of audio per wall second of each mode;
+   a batched inference of 4 mixed-length rows against the plain MRF; a
+   profile of one batched call of 8 rows;
+9. Glow-TTS without a vocoder: one request through Griffin-Lim (60
+   iterations on the host) and the silence trim;
+10. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
 
-Each slice's requests are its main path: the launch counts are set to 0
-just before them and read just after.
+Each serving phase's requests are a main path: the launch counts are set to
+0 just before them and read just after. Phases 5 and 6 take the locked
+path (the batcher detached), as before the batcher was ported.
 
 It needs the repository beside it and a CUDA device; without either it exits
 non-zero. It imports nothing of JAX or of the JAX package.
@@ -74,6 +89,21 @@ TEXTS = [
 ]
 SEED = 0
 MEL_FRAMES = 256  # mel frames of the kernel check; stage C has T = MEL_FRAMES · prod(upsample factors so far)
+BATCH, BATCH_MEL_FRAMES = 8, 128  # K1's batched check: B rows of BATCH_MEL_FRAMES mel frames
+# the batched phase's 8 concurrent requests: 15 distinct sentences, single and multi-sentence
+BATCH_REQUESTS = [
+    "Be a voice, not an echo.",
+    "The birch canoe slid on the smooth planks. Glue the sheet to the dark blue background. It is easy to tell "
+    "the depth of a well.",
+    "A king ruled the state in the early days.",
+    "These days a chicken leg is a rare dish. Rice is often served in round bowls.",
+    "The juice of lemons makes fine punch.",
+    "The box was thrown beside the parked truck. The hogs were fed chopped corn and garbage. Four hours of steady "
+    "work faced us. A large size in stockings is hard to sell.",
+    "The boy was there when the sun rose.",
+    "A rod is used to catch pink salmon. The source of the huge river is the clear spring.",
+]
+GATHER_WINDOW_S = 0.05  # the batcher's gather window in the batched phase, so the 8 requests meet
 F32_TOL = 2e-4  # the bar of tests/test_hifigan_pallas.py
 K2_SHAPE = dict(B=5, T=11776, R=512, F=512, C=512)  # 46-frame folds of 256 samples: 5 for a 200-frame sentence
 K2_TOL = 1e-4  # score of the kernel's draw below the plain version's best, teacher-forced
@@ -111,8 +141,8 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def mrf_stage_inputs(C: int, T: int, dtype, gen):
-    """x [1, C, T] and a packed VITS MRF stage (k 3/7/11, d 1/3/5) of random weights."""
+def mrf_stage_inputs(C: int, T: int, dtype, gen, B: int = 1):
+    """x [B, C, T] and a packed VITS MRF stage (k 3/7/11, d 1/3/5) of random weights."""
     import torch
 
     from tpu_tts_torch.ops.hifigan_mrf import pack_stage
@@ -127,7 +157,7 @@ def mrf_stage_inputs(C: int, T: int, dtype, gen):
              rnd(C, scale=0.1), d)
             for d in (1, 3, 5)
         ])
-    return rnd(1, C, T).to(dtype), pack_stage(blocks, dtype)
+    return rnd(B, C, T).to(dtype), pack_stage(blocks, dtype)
 
 
 def mrf_work(stage, B: int, C: int, T: int, dtype) -> dict:
@@ -194,6 +224,47 @@ def check_mrf_kernel() -> tuple:
                 raise AssertionError(f"hifigan_mrf disagrees with its plain version at {row['dtype']} C={C}: {err} > {tol}")
     log("kernel hifigan_mrf library_ms: none (no single PyTorch call computes the MRF stack)")
     return rows, sass
+
+
+def check_mrf_kernel_batched() -> list:
+    """K1 against `mrf_stack_reference` on the batch the micro-batcher sends:
+    BATCH rows of each VITS stage shape at BATCH_MEL_FRAMES mel frames a row,
+    float32, B on the grid's z axis."""
+    import torch
+
+    from tpu_tts_torch.ops import hifigan_mrf
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows = []
+    for C, up in ((256, 8), (128, 64), (64, 128), (32, 256)):
+        T = BATCH_MEL_FRAMES * up
+        x, stage = mrf_stage_inputs(C, T, torch.float32, gen, B=BATCH)
+        pl = hifigan_mrf.plan(BATCH, C, T, n_sm)
+        before = hifigan_mrf.launches
+        got = hifigan_mrf.mrf_stack(x, stage)
+        n_launch = hifigan_mrf.launches - before
+        ref = hifigan_mrf.mrf_stack_reference(x, stage)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ms = cuda_ms(lambda: hifigan_mrf.mrf_stack(x, stage), 3)
+        plain_ms = cuda_ms(lambda: hifigan_mrf.mrf_stack_reference(x, stage), 3)
+        work = mrf_work(stage, BATCH, C, T, torch.float32)
+        row = {"dtype": "float32", "B": BATCH, "C": C, "T": T, "max_abs_err": err, "tol": F32_TOL,
+               "tile": list(pl.shape), "grid": list(pl.grid), "blocks": pl.blocks, "launches": n_launch,
+               "ms": ms, "plain_ms": plain_ms, **work}
+        rows.append(row)
+        log(f"kernel hifigan_mrf float32 B={BATCH} C={C} T={T}: tile={pl.shape[0]}x{pl.shape[1]} grid={pl.grid} "
+            f"blocks={pl.blocks} launches={n_launch} max_abs_err={err:.3e} (tol {F32_TOL:.0e}) ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={work['bound_ms']:.4f} ({work['bound_by']}) "
+            f"bound_cuda_core_ms={work['bound_cuda_core_ms']:.4f}")
+        if n_launch != hifigan_mrf.launches_per_stage(stage):
+            raise AssertionError(f"hifigan_mrf took {n_launch} launches for one stage at B={BATCH}")
+        if not bool(torch.isfinite(got).all()) or err > F32_TOL:
+            raise AssertionError(f"hifigan_mrf disagrees with its plain version at B={BATCH} C={C}: {err} > {F32_TOL}")
+    log(f"kernel hifigan_mrf B={BATCH} sum: ms={sum(r['ms'] for r in rows):.4f} "
+        f"plain_ms={sum(r['plain_ms'] for r in rows):.4f} bound_ms={sum(r['bound_ms'] for r in rows):.4f}")
+    return rows
 
 
 def wavernn_work(w, B: int, T: int) -> dict:
@@ -304,8 +375,12 @@ def check_wavernn_kernel() -> list:
     return rows
 
 
-def save_model(tmp: str, device: str = "cuda"):
-    """A full-width default VITS with seeded random weights → (state_dict, config.json)."""
+def save_model(tmp: str, device: str = "cuda", config=None, coqui: bool = False):
+    """A full-width VITS (the default `VitsConfig` unless `config` is given)
+    with seeded random weights → (checkpoint, config.json). The checkpoint is
+    the net's state_dict, or with `coqui` a Coqui-format training checkpoint:
+    `{"model": ..., "step": ...}` holding a discriminator tensor the
+    inference net has no place for."""
     import torch
 
     from tpu_tts_torch.configs.vits_config import VitsConfig
@@ -313,7 +388,7 @@ def save_model(tmp: str, device: str = "cuda"):
     from tpu_tts_torch.models.vits import Vits
 
     torch.manual_seed(SEED)
-    config = VitsConfig()
+    config = VitsConfig() if config is None else config
     model = Vits.init_from_config(config, device=device)
     # the decoder's convs are redrawn with unit gain (transposed convs over the
     # C_in·k/stride taps that reach an output, resblock convs at half that),
@@ -331,7 +406,11 @@ def save_model(tmp: str, device: str = "cuda"):
                 wn.original1.normal_(0.0, 0.5 * (c_in * k) ** -0.5)
                 wn.original0.copy_(wn._norm(wn.original1))
     model_path, config_path = os.path.join(tmp, "model.pth"), os.path.join(tmp, "config.json")
-    torch.save(model.net.state_dict(), model_path)
+    if coqui:
+        sd = {**model.net.state_dict(), "disc.nets.0.conv_post.bias": torch.zeros(1, device=device)}
+        torch.save({"model": sd, "step": 0, "epoch": 0}, model_path)
+    else:
+        torch.save(model.net.state_dict(), model_path)
     model.config.save_json(config_path)
     return {"model_path": model_path, "config_path": config_path}
 
@@ -399,6 +478,9 @@ def serve_and_check(paths: dict, kernel, per_sentence: bool = False, check=None,
 
     args = argparse.Namespace(**paths, device=device, host="127.0.0.1", port=0)
     server = create_server(args)
+    if TTSHandler._batcher is not None:  # the locked path, as these phases ran before the batcher
+        TTSHandler._batcher.close()
+        TTSHandler._batcher = None
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
@@ -431,13 +513,19 @@ def serve_and_check(paths: dict, kernel, per_sentence: bool = False, check=None,
             wav = pcm.astype(np.float32)
             if not np.isfinite(wav).all() or np.abs(wav).max() == 0:
                 raise AssertionError(f"silent or non-finite reply for {text!r}")
-            if len(pcm) != expected or sr != synth.output_sample_rate:
-                raise AssertionError(f"reply of {len(pcm)} samples at {sr} Hz, expected {expected} at "
+            # with do_trim_silence a sentence may end at ap.find_endpoint, which
+            # keeps at least its first two quarter-windows of 0.8 s
+            least = expected
+            if getattr(synth.tts_config.audio, "do_trim_silence", False):
+                keep = 2 * int(model.ap.sample_rate * 0.8 / 4)
+                least = sum(min(f * model.ap.hop_length, keep) for f in frames) + SENTENCE_GAP * len(sentences)
+            if not least <= len(pcm) <= expected or sr != synth.output_sample_rate:
+                raise AssertionError(f"reply of {len(pcm)} samples at {sr} Hz, expected {least}..{expected} at "
                                      f"{synth.output_sample_rate}")
             if n <= 0 or (per_sentence and n != len(sentences)):
                 raise AssertionError(f"request {text!r} of {len(sentences)} sentences launched {name} {n} times")
             log(f"request chars={len(text)} sentences={len(sentences)} frames={frames} samples={len(pcm)} "
-                f"latency_s={latency:.4f} {name}_launches={n}")
+                f"trimmed={expected - len(pcm)} latency_s={latency:.4f} {name}_launches={n}")
         with urllib.request.urlopen(f"{base}/details", timeout=60) as r:
             json.loads(r.read())
         if check is not None:
@@ -454,15 +542,25 @@ def profile_request(synth, text: str, top: int = 8):
     """Where one request's time goes: wall time of `Synthesizer.tts`, the
     device's busy time (sum of kernel times, one stream) and its idle share,
     and the kernels with the most device time (torch.profiler)."""
+    profile_call(lambda: synth.tts(text), {
+        "model": synth.tts_config.model, "vocoder": synth.vocoder_config.model if synth.vocoder_config else None,
+        "chars": len(text)}, top)
+
+
+def profile_call(fn, info: dict, top: int = 8) -> dict:
+    """`fn()` once to warm up, then once under torch.profiler: its wall time,
+    the device's busy time (sum of kernel times) and idle share, and the
+    kernels with the most device time, printed as a `profile` line after
+    `info`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    synth.tts(text)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        synth.tts(text)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_kernel = {}
@@ -475,12 +573,11 @@ def profile_request(synth, text: str, top: int = 8):
             per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
     busy_ms = sum(per_kernel.values())
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]
-    log("profile " + json.dumps({
-        "model": synth.tts_config.model, "vocoder": synth.vocoder_config.model if synth.vocoder_config else None,
-        "chars": len(text), "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
-        "top_kernels_ms": [[name[:80], ms] for name, ms in ranked],
-    }))
+    result = {**info, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+              "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+              "top_kernels_ms": [[name[:80], ms] for name, ms in ranked]}
+    log("profile " + json.dumps(result))
+    return result
 
 
 def check_against_plain(model, tol: float = 1e-3):
@@ -510,6 +607,234 @@ def check_against_plain(model, tol: float = 1e-3):
         raise AssertionError(f"served waveform is near silent or saturated (rms {rms}, saturated {saturated})")
 
 
+def record_inference(model):
+    """Wrap `model.inference` so that each call's rows are recorded: the
+    token ids of each row (to its `x_lengths`), its `y_lengths`, and the
+    call's padded `x` and `x_lengths` as given. Returns the list of calls and
+    a function that takes the wrapper off."""
+    import numpy as np
+
+    calls = []
+    orig = model.inference
+
+    def recording(x, aux_input=None, **kwargs):
+        out = orig(x, aux_input=aux_input, **kwargs)
+        ids = np.asarray(x).reshape(-1, np.asarray(x).shape[-1])
+        x_lengths = np.asarray((aux_input or {}).get("x_lengths", [ids.shape[1]] * ids.shape[0]))
+        calls.append(([tuple(ids[i, : x_lengths[i]].tolist()) for i in range(len(ids))],
+                      out["y_lengths"].cpu().numpy().tolist(), ids.copy(), x_lengths.copy()))
+        return out
+
+    model.inference = recording
+    return calls, lambda: model.__dict__.pop("inference", None)
+
+
+def check_replies(synth, replies, calls) -> int:
+    """Each reply: HTTP 200, a WAV body at the synthesizer's rate, finite and
+    not silent, of the length the recorded calls give its sentences (each
+    sentence's row: `y_lengths · hop`, then the gap). Returns the samples of
+    speech, the gaps left out."""
+    import numpy as np
+    import scipy.io.wavfile
+
+    from tpu_tts_torch.infer.synthesizer import SENTENCE_GAP
+
+    model, total = synth.tts_model, 0
+    rows = {}
+    for ids, y_lengths, *_ in calls:  # a sentence's own row comes before the pad rows that repeat it
+        for row, y in zip(ids, y_lengths):
+            rows.setdefault(row, y)
+    for text, status, body in replies:
+        if status != 200 or body[:4] != b"RIFF" or body[8:12] != b"WAVE":
+            raise AssertionError(f"/api/tts gave status {status} and no WAV body for {text!r}")
+        sr, pcm = scipy.io.wavfile.read(io.BytesIO(body))
+        frames = [rows[tuple(int(t) for t in model.tokenizer.text_to_ids(s))] for s in synth.split_into_sentences(text)]
+        expected = sum(f * model.ap.hop_length for f in frames) + SENTENCE_GAP * len(frames)
+        wav = pcm.astype(np.float32)
+        if not np.isfinite(wav).all() or np.abs(wav).max() == 0:
+            raise AssertionError(f"silent or non-finite reply for {text!r}")
+        if len(pcm) != expected or sr != synth.output_sample_rate:
+            raise AssertionError(f"reply of {len(pcm)} samples at {sr} Hz for {text!r}, expected {expected} at "
+                                 f"{synth.output_sample_rate}")
+        total += len(pcm) - SENTENCE_GAP * len(frames)
+    return total
+
+
+def serve_batched(paths: dict, device: str = "cuda") -> dict:
+    """The VITS batched serving phase: BATCH_REQUESTS sent together through the
+    micro-batcher, then one after another on the locked path; then a batched
+    call against the plain MRF and a profile of one batched call of 8 rows."""
+    import numpy as np
+
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.server.server import TTSHandler, create_server
+
+    server = create_server(argparse.Namespace(**paths, device=device, host="127.0.0.1", port=0, max_batch=16))
+    batcher = TTSHandler._batcher
+    if batcher is None:
+        raise AssertionError("the server did not put VITS behind the micro-batcher")
+    batcher.gather_window_s = GATHER_WINDOW_S
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/api/tts"
+    synth = TTSHandler.synthesizer
+    model = synth.tts_model
+    dec = model.net.waveform_decoder
+    per_call = sum(hifigan_mrf.launches_per_stage(dec.mrf_stage(i)) for i in range(dec.num_upsamples))
+    sentences = [synth.split_into_sentences(t) for t in BATCH_REQUESTS]
+    n_sentences = sum(len(s) for s in sentences)
+
+    def request(text):
+        try:
+            with urllib.request.urlopen(post(url, text), timeout=600) as r:
+                return text, r.status, r.read()
+        except urllib.error.HTTPError as e:
+            raise AssertionError(f"/api/tts gave HTTP {e.code} for {text!r}: {e.read()[:2000]!r}") from None
+
+    def concurrently():
+        replies = [None] * len(BATCH_REQUESTS)
+        errors = []
+
+        def go(i):
+            try:
+                replies[i] = request(BATCH_REQUESTS[i])
+            except Exception as e:  # raised below, in the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(len(BATCH_REQUESTS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errors:
+            raise errors[0]
+        return replies
+
+    try:
+        concurrently()  # warm-up round, not counted
+        calls, unwrap = record_inference(model)
+        b0, r0, s0 = batcher.batches_run, batcher.rows_run, len(batcher.batch_sizes)
+        hifigan_mrf.launches = 0
+        t0 = time.perf_counter()
+        replies = concurrently()
+        wall_b = time.perf_counter() - t0
+        launches_b = hifigan_mrf.launches
+        samples_b = check_replies(synth, replies, calls)
+        batches, rows, sizes = batcher.batches_run - b0, batcher.rows_run - r0, batcher.batch_sizes[s0:]
+        if batches >= len(BATCH_REQUESTS) or batches != len(calls) or rows != n_sentences:
+            raise AssertionError(f"{len(BATCH_REQUESTS)} concurrent requests of {n_sentences} sentences ran "
+                                 f"{batches} batches of {rows} rows ({len(calls)} inference calls)")
+        if launches_b != per_call * len(calls):
+            raise AssertionError(f"the batched requests launched hifigan_mrf {launches_b} times for {len(calls)} "
+                                 f"inference calls ({per_call} a call)")
+
+        served_x, served_lengths = max(calls, key=lambda c: len(c[0]))[2:]  # the largest batch served
+
+        TTSHandler._batcher = None  # the locked path
+        for text in BATCH_REQUESTS:  # warm-up round at the B = 1 shapes, not counted
+            request(text)
+        calls.clear()
+        hifigan_mrf.launches = 0
+        t0 = time.perf_counter()
+        serial = [request(text) for text in BATCH_REQUESTS]
+        wall_s = time.perf_counter() - t0
+        launches_s = hifigan_mrf.launches
+        samples_s = check_replies(synth, serial, calls)
+        unwrap()
+        if launches_s != per_call * n_sentences or len(calls) != n_sentences:
+            raise AssertionError(f"the serial requests launched hifigan_mrf {launches_s} times in {len(calls)} calls")
+        sr = synth.output_sample_rate  # audio_s: the replies' speech, the gaps between sentences left out
+        modes = {
+            "batched": {"wall_s": wall_b, "audio_s": samples_b / sr, "audio_s_per_wall_s": samples_b / sr / wall_b,
+                        "batches_run": batches, "rows_run": rows, "padded_B": sizes, "hifigan_mrf_launches": launches_b,
+                        "gather_window_s": GATHER_WINDOW_S},
+            "serial": {"wall_s": wall_s, "audio_s": samples_s / sr, "audio_s_per_wall_s": samples_s / sr / wall_s,
+                       "batches_run": 0, "rows_run": n_sentences, "padded_B": [1] * n_sentences,
+                       "hifigan_mrf_launches": launches_s},
+        }
+        for mode, m in modes.items():
+            log(f"serving {mode}: requests={len(BATCH_REQUESTS)} sentences={n_sentences} wall_s={m['wall_s']:.4f} "
+                f"audio_s={m['audio_s']:.4f} audio_s_per_wall_s={m['audio_s_per_wall_s']:.4f} "
+                f"batches_run={m['batches_run']} rows_run={m['rows_run']} padded_B={m['padded_B']} "
+                f"hifigan_mrf_launches={m['hifigan_mrf_launches']}")
+        ratio = modes["batched"]["audio_s_per_wall_s"] / modes["serial"]["audio_s_per_wall_s"]
+        log(f"serving batched/serial audio_s_per_wall_s ratio={ratio:.4f}")
+
+        flat = [s for sents in sentences for s in sents]
+        check_batch_against_plain(model, *pad_rows(model, [flat[i] for i in (0, 1, 5, 9)]), "4 rows")
+        check_batch_against_plain(model, served_x, served_lengths, "the served batch")
+        x, x_lengths = pad_rows(model, flat[:8])
+        aux = {"x_lengths": x_lengths}
+        prof = profile_call(lambda: model.inference(x, aux_input=aux),
+                            {"model": "vits", "call": "batched inference", "rows": 8, "tokens": x_lengths.tolist()})
+        return {"modes": modes, "ratio": ratio, "launches": launches_b, "launches_per_batch": launches_b // batches,
+                "profile": prof}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        batcher.close()
+        TTSHandler._batcher = None
+
+
+def pad_rows(model, texts):
+    """The token ids of `texts` right-padded into one batch, and their lengths."""
+    import numpy as np
+
+    ids = [model.tokenizer.text_to_ids(t) for t in texts]
+    x = np.zeros((len(ids), max(len(r) for r in ids)), dtype=np.int64)
+    for i, r in enumerate(ids):
+        x[i, : len(r)] = r
+    return x, np.array([len(r) for r in ids])
+
+
+def check_batch_against_plain(model, x, x_lengths, label: str, tol: float = 1e-3):
+    """One batched inference of mixed-length rows, the kernel path against the
+    same model with the plain MRF version (as `check_against_plain`)."""
+    import torch
+
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.vocoder.models import hifigan_generator
+
+    aux = {"x_lengths": x_lengths}
+    got = model.inference(x, aux_input=aux)
+    hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
+    try:
+        ref = model.inference(x, aux_input=aux)
+    finally:
+        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
+    y = got["y_lengths"].tolist()
+    err = float((got["model_outputs"] - ref["model_outputs"]).abs().max())
+    log(f"batched waveform vs plain MRF ({label}): rows={len(x)} tokens={aux['x_lengths'].tolist()} y_lengths={y} "
+        f"shape={tuple(got['model_outputs'].shape)} max_abs_err={err:.3e} (tol {tol:.0e})")
+    if y != ref["y_lengths"].tolist() or len(set(y)) < 2 or not torch.isfinite(got["model_outputs"]).all() or err > tol:
+        raise AssertionError(f"the batched waveform disagrees with the plain path: {err} > {tol} or y {y}")
+
+
+def glow_griffin_lim(paths: dict, device: str = "cuda") -> dict:
+    """Glow-TTS without a vocoder: one request through Griffin-Lim on the host
+    and the silence trim, its length after the trim and its wall time."""
+    import numpy as np
+
+    from tpu_tts_torch.infer.synthesizer import SENTENCE_GAP, Synthesizer
+
+    synth = Synthesizer(paths["model_path"], paths["config_path"], device=device)
+    model, text = synth.tts_model, TEXTS[1]
+    t0 = time.perf_counter()
+    wav = np.asarray(synth.tts(text), dtype=np.float32)
+    wall = time.perf_counter() - t0
+    frames = int(model.inference(model.tokenizer.text_to_ids(text))["y_lengths"][0])
+    untrimmed = (frames - 1) * model.ap.hop_length + SENTENCE_GAP  # the iSTFT gives frames − 1 hops
+    least = min(untrimmed - SENTENCE_GAP, 2 * int(model.ap.sample_rate * 0.8 / 4)) + SENTENCE_GAP
+    row = {"chars": len(text), "frames": frames, "samples": len(wav), "untrimmed_samples": untrimmed,
+           "trim": bool(synth.tts_config.audio.do_trim_silence), "griffin_lim_iters": model.ap.griffin_lim_iters,
+           "wall_s": wall}
+    log("griffin_lim request " + json.dumps(row))
+    if not np.isfinite(wav).all() or np.abs(wav).max() == 0 or not least <= len(wav) <= untrimmed:
+        raise AssertionError(f"Griffin-Lim reply is silent, non-finite or of the wrong length: {row}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -536,7 +861,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         mrf_launches = serve_and_check(save_model(tmp), hifigan_mrf, check=check_against_plain)
     with tempfile.TemporaryDirectory() as tmp:
-        k2_launches = serve_and_check(save_glow_wavernn(tmp), wavernn_sampler, per_sentence=True)
+        glow_paths = save_glow_wavernn(tmp)
+        k2_launches = serve_and_check(glow_paths, wavernn_sampler, per_sentence=True)
+        glow_griffin_lim(glow_paths)
+    b8_rows = check_mrf_kernel_batched()
+    with tempfile.TemporaryDirectory() as tmp:
+        from tpu_tts_torch.configs.vits_config import VitsConfig
+
+        config = VitsConfig(use_phonemes=True, phonemizer="en_rules", phoneme_language="en",
+                            text_cleaner="phoneme_cleaners")
+        batched = serve_batched(save_model(tmp, config=config, coqui=True))
 
     f32 = [r for r in rows if r["dtype"] == "float32"]
     served = next(r for r in k2_rows if r["mode"] == "sampled")  # the mode the vocoder serves
@@ -556,6 +890,9 @@ def main() -> int:
         "library_ms": None,  # no single PyTorch call computes the MRF stack
         "sass": sass,
         "shapes": rows,
+        "shapes_b8": b8_rows,
+        "batched_launches": batched["launches"],
+        "launches_per_batch": batched["launches_per_batch"],
     }, {
         "name": "wavernn_sampler",
         "route": "cuda",

@@ -76,6 +76,26 @@ def test_mrf_kernel_vits_stage_shapes(C, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C,up", [(256, 8), (32, 256)])
+@pytest.mark.parametrize("B", [8, 16])
+def test_mrf_kernel_batched_stage_shapes(C, up, B):
+    """The batch the micro-batcher sends: B rows of the first and last VITS
+    stage widths at 32 mel frames, B on the grid's z axis; float32 within
+    2e-4 and 18 launches a stage whatever B."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(B * C)
+    stage = _stage(C, (3, 7, 11), ((1, 3, 5),) * 3, gen, "cuda")
+    x = torch.randn(B, C, 32 * up, generator=gen).cuda()
+    before = hifigan_mrf.launches
+    got = hifigan_mrf.mrf_stack(x, stage)
+    ref = hifigan_mrf.mrf_stack_reference(x, stage)
+    torch.cuda.synchronize()
+    assert hifigan_mrf.launches == before + 18
+    assert torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= 2e-4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("blocks", [1, 2])
 def test_mrf_kernel_matches_reference_bf16(blocks):
     """bf16: the plain version rounds every conv output to bf16, the kernel
@@ -114,7 +134,7 @@ def test_mrf_kernel_runs_on_the_tensor_cores():
 def test_mrf_plan_matches_the_kernel_layout():
     """The plan's shared memory is the kernel's own, for every tile and type."""
     _need_cuda()
-    lib = hifigan_mrf._kernel()
+    lib = hifigan_mrf.load_kernel()
     for bn in hifigan_mrf.BN_CHOICES:
         for bf16 in (False, True):
             assert lib.hifigan_mrf_smem_bytes(bn, int(bf16)) == hifigan_mrf.smem_bytes(bn, bf16)
@@ -140,6 +160,80 @@ def test_mrf_plan_fills_the_card_within_shared_memory():
     assert hifigan_mrf.plan(1, 32, 7, n_sm).blocks == 1
     with pytest.raises(ValueError):
         hifigan_mrf.plan(1, 48, 1000, n_sm)
+
+
+def test_mrf_plan_at_batch_16():
+    """The plan of the batches the micro-batcher sends (B up to 16, the
+    VITS stage shapes at the 384-frame decode bucket): the tile divides C,
+    fits in shared memory and B is the grid's z axis."""
+    n_sm = 132
+    for C, up in ((256, 8), (128, 64), (64, 128), (32, 256)):
+        T = 384 * up
+        for B in (2, 4, 8, 16):
+            pl = hifigan_mrf.plan(B, C, T, n_sm)
+            BM, BN = pl.shape
+            assert C % BN == 0 and pl.grid == (math.ceil(T / BM), C // BN, B)
+            assert hifigan_mrf.smem_bytes(BN, False) <= build.SMEM_LIMIT
+            assert hifigan_mrf.smem_bytes(BN, True) <= build.SMEM_LIMIT
+    assert hifigan_mrf.plan(8, 32, 384 * 256, n_sm).blocks >= 6000
+
+
+def _tiny_vits_on_card():
+    """A tiny VITS whose generator widths K1 takes (128 → 64 → 32), random
+    weights from a seed, noise scales 0, behind a `Synthesizer`."""
+    from tpu_tts_torch.configs.vits_config import VitsArgs, VitsAudioConfig, VitsConfig
+    from tpu_tts_torch.infer.synthesizer import Synthesizer
+    from tpu_tts_torch.models.vits import Vits
+
+    torch.manual_seed(0)
+    args = VitsArgs(hidden_channels=32, hidden_channels_ffn_text_encoder=48, num_layers_text_encoder=2,
+                    num_layers_flow=2, upsample_rates_decoder=[4, 4], upsample_kernel_sizes_decoder=[8, 8],
+                    upsample_initial_channel_decoder=128, resblock_kernel_sizes_decoder=[3, 7],
+                    resblock_dilation_sizes_decoder=[[1, 3], [1, 3]], inference_noise_scale=0.0,
+                    inference_noise_scale_dp=0.0)
+    config = VitsConfig(model_args=args, audio=VitsAudioConfig(fft_size=64, win_length=64, hop_length=16))
+    synth = Synthesizer(device="cuda")
+    synth.tts_model = Vits.init_from_config(config, device="cuda")
+    synth.tts_config = synth.tts_model.config
+    return synth
+
+
+@pytest.mark.cuda
+def test_batcher_on_the_card_runs_k1_once_a_batch():
+    """4 concurrent requests through the micro-batcher on the card: fewer
+    batches than requests, every inference call launching K1 for each
+    stage's dilation units (2 × 4 a stage, 2 stages), and each reply the
+    locked path's waveform within 1e-4 (rows of one batch against B = 1)."""
+    import threading
+
+    from tpu_tts_torch.infer.batcher import TTSMicroBatcher
+
+    _need_cuda()
+    synth = _tiny_vits_on_card()
+    gen = synth.tts_model.net.waveform_decoder
+    per_call = sum(hifigan_mrf.launches_per_stage(gen.mrf_stage(i)) for i in range(gen.num_upsamples))
+    assert per_call == 16
+    texts = ["First request here.", "The second one is longer than that.", "Third.", "And a fourth request."]
+    batcher = TTSMicroBatcher(synth, gather_window_s=0.5)
+    replies = {}
+    try:
+        before = hifigan_mrf.launches
+        threads = [threading.Thread(target=lambda i=i: replies.__setitem__(i, batcher.tts(texts[i])))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        launched = hifigan_mrf.launches - before
+    finally:
+        batcher.close()
+    assert batcher.batches_run < 4 and batcher.rows_run == 4
+    assert launched == per_call * batcher.batches_run
+    for i, text in enumerate(texts):
+        serial = torch.tensor(synth.tts(text))
+        got = torch.from_numpy(replies[i])
+        assert got.shape == serial.shape and bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0
+        assert float((got - serial).abs().max()) <= 1e-4
 
 
 def test_wavernn_plan_holds_the_weights_in_shared_memory():

@@ -26,6 +26,7 @@ CPU tensor; nothing else chooses between them.
 
 import ctypes
 import math
+import threading
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -197,20 +198,26 @@ def plan(B: int, C: int, T: int, n_sm: int) -> Plan:
 
 
 _lib = None
+_lib_lock = threading.Lock()
 
 
-def _kernel():
+def load_kernel():
+    """The kernel's library, built from `csrc/hifigan_mrf.cu` at first use and
+    loaded once; safe to call from several threads (a server's batching
+    worker loads it before it serves)."""
     global _lib
     if _lib is None:
-        from tpu_tts_torch.ops.build import load
+        with _lib_lock:
+            if _lib is None:
+                from tpu_tts_torch.ops.build import load
 
-        lib = load("hifigan_mrf")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hifigan_mrf_conv.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, i, i, p]
-        lib.hifigan_mrf_conv.restype = ctypes.c_int
-        lib.hifigan_mrf_smem_bytes.argtypes = [i, i]
-        lib.hifigan_mrf_smem_bytes.restype = ctypes.c_size_t
-        _lib = lib
+                lib = load("hifigan_mrf")
+                p, i = ctypes.c_void_p, ctypes.c_int
+                lib.hifigan_mrf_conv.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, i, i, p]
+                lib.hifigan_mrf_conv.restype = ctypes.c_int
+                lib.hifigan_mrf_smem_bytes.argtypes = [i, i]
+                lib.hifigan_mrf_smem_bytes.restype = ctypes.c_size_t
+                _lib = lib
     return _lib
 
 
@@ -238,7 +245,7 @@ def _mrf_stack_cuda(x: torch.Tensor, stage: MrfStage) -> torch.Tensor:
     global launches
     x = x.to(stage.dtype).contiguous()
     _check(stage, x)
-    lib = _kernel()
+    lib = load_kernel()
     B, C, T = x.shape
     n_blocks = len(stage.blocks)
     bufs = [torch.empty_like(x), torch.empty_like(x)]

@@ -2,9 +2,9 @@
 
 Same registry surface (functions looked up by name from the config's
 ``text_cleaner`` field). `convert_to_ascii` uses a unicodedata-based
-transliteration instead of the `anyascii` package. The port carries the
-English and language-neutral cleaners; French and Mandarin come with the
-phonemizers (ROADMAP).
+transliteration instead of the `anyascii` package. A copy of
+`tpu_tts/text/cleaners.py`, with the French abbreviations and the Mandarin
+number expansion it reaches.
 """
 
 import re
@@ -18,9 +18,15 @@ _whitespace_re = re.compile(r"\s+")
 
 
 def expand_abbreviations(text: str, lang: str = "en") -> str:
-    if lang != "en":  # other languages' tables come with their phonemizers
+    if lang == "en":
+        abbreviations = abbreviations_en
+    elif lang == "fr":
+        from tpu_tts_torch.text.french.abbreviations import abbreviations_fr
+
+        abbreviations = abbreviations_fr
+    else:
         return text
-    for regex, replacement in abbreviations_en:
+    for regex, replacement in abbreviations:
         text = re.sub(regex, replacement, text)
     return text
 
@@ -99,12 +105,29 @@ def phoneme_cleaners(text: str) -> str:
     return text
 
 
+def french_cleaners(text: str) -> str:
+    text = expand_abbreviations(text, lang="fr")
+    text = lowercase(text)
+    text = replace_symbols(text, lang="fr")
+    text = remove_aux_symbols(text)
+    text = collapse_whitespace(text)
+    return text
+
+
 def portuguese_cleaners(text: str) -> str:
     text = lowercase(text)
     text = replace_symbols(text, lang="pt")
     text = remove_aux_symbols(text)
     text = collapse_whitespace(text)
     return text
+
+
+def chinese_mandarin_cleaners(text: str) -> str:
+    """Basic pipeline for Chinese (Coqui `cleaners.py`:153): Arabic numbers
+    expanded to hanzi."""
+    from tpu_tts_torch.text.chinese_mandarin.numbers import replace_numbers_to_characters_in_text
+
+    return replace_numbers_to_characters_in_text(text)
 
 
 def multilingual_cleaners(text: str) -> str:

@@ -1,4 +1,4 @@
-"""TTSTokenizer: clean → encode → blank-intersperse → BOS/EOS.
+"""TTSTokenizer: clean → phonemize → encode → blank-intersperse → BOS/EOS.
 
 Behavioral mirror of Coqui TTS `TTS/tts/utils/text/tokenizer.py`:10
 (`text_to_ids`:87, `intersperse_blank_char`:126, `init_from_config`:149).
@@ -8,7 +8,8 @@ from typing import Callable, List
 
 from tpu_tts_torch.text import characters as _characters
 from tpu_tts_torch.text import cleaners
-from tpu_tts_torch.text.characters import Graphemes
+from tpu_tts_torch.text.characters import Graphemes, IPAPhonemes
+from tpu_tts_torch.text.phonemizers import DEF_LANG_TO_PHONEMIZER, get_phonemizer_by_name
 
 
 def _characters_class(path: str):
@@ -107,8 +108,6 @@ class TTSTokenizer:
     @staticmethod
     def init_from_config(config, characters=None):
         """Build tokenizer + (possibly updated) config from a model config."""
-        if config.use_phonemes:
-            raise NotImplementedError("phonemizers are not ported yet (ROADMAP.md, queue 1)")
         text_cleaner = None
         if isinstance(config.text_cleaner, (str, list)):
             text_cleaner = getattr(cleaners, config.text_cleaner)
@@ -117,15 +116,43 @@ class TTSTokenizer:
             if config.characters and getattr(config.characters, "characters_class", None):
                 CharactersClass = _characters_class(config.characters.characters_class)
                 characters, new_config = CharactersClass.init_from_config(config)
+            elif config.use_phonemes:
+                characters, new_config = IPAPhonemes.init_from_config(config)
             else:
                 characters, new_config = Graphemes.init_from_config(config)
         else:
             characters, new_config = characters.init_from_config(config)
 
         new_config.characters.characters_class = _import_path(characters)
+
+        phonemizer = None
+        if config.use_phonemes:
+            if "phonemizer" in config and config.phonemizer == "multi_phonemizer":
+                from tpu_tts_torch.text.phonemizers.multi_phonemizer import MultiPhonemizer
+
+                lang_to_phonemizer_name = {}
+                for dataset in config.datasets:
+                    if dataset.language != "":
+                        lang_to_phonemizer_name[dataset.language] = dataset.phonemizer
+                    else:
+                        raise ValueError("Multi phonemizer requires language to be set for each dataset.")
+                phonemizer = MultiPhonemizer(lang_to_phonemizer_name)
+            else:
+                phonemizer_kwargs = {"language": config.phoneme_language}
+                if "phonemizer" in config and config.phonemizer:
+                    phonemizer = get_phonemizer_by_name(config.phonemizer, **phonemizer_kwargs)
+                else:
+                    try:
+                        phonemizer = get_phonemizer_by_name(
+                            DEF_LANG_TO_PHONEMIZER[config.phoneme_language], **phonemizer_kwargs
+                        )
+                        new_config.phonemizer = phonemizer.name()
+                    except KeyError as e:
+                        raise ValueError(f"No phonemizer found for language {config.phoneme_language}.") from e
+
         return (
             TTSTokenizer(
-                config.use_phonemes, text_cleaner, characters, None, config.add_blank,
+                config.use_phonemes, text_cleaner, characters, phonemizer, config.add_blank,
                 config.enable_eos_bos_chars,
             ),
             new_config,

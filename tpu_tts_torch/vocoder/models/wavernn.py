@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from tpu_tts_torch.audio import mulaw_decode
 from tpu_tts_torch.config.base import Coqpit
 from tpu_tts_torch.device import resolve_device
+from tpu_tts_torch.utils.checkpoint import load_net_checkpoint
 from tpu_tts_torch.ops import wavernn_sampler
 
 
@@ -245,12 +246,13 @@ class Wavernn:
         return samples[0][: mels.shape[1] * hop]
 
     def load_checkpoint(self, config, checkpoint_path: str, eval: bool = True, strict: bool = True):
-        """Load a torch `state_dict` file saved from `self.net`."""
-        state = torch.load(checkpoint_path, map_location=self.device, weights_only=True)
-        self.net.load_state_dict(state, strict=strict)
+        """Load a `.pth` file into `self.net`: the port's `state_dict`, or a
+        Coqui-format checkpoint (`{"model": ...}` or flat), as
+        `BaseTTSModel.load_checkpoint` does."""
+        ckpt = load_net_checkpoint(self.net, checkpoint_path, strict=strict)
         if eval:
             self.net.eval()
-        return state
+        return ckpt
 
     @staticmethod
     def init_from_config(config, device=None) -> "Wavernn":
