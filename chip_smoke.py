@@ -52,7 +52,19 @@ result line:
    profile of one batched call of 8 rows;
 9. Glow-TTS without a vocoder: one request through Griffin-Lim (60
    iterations on the host) and the silence trim;
-10. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
+10. multi-speaker multilingual VITS: the full-width VITS of the multilingual
+   recipe (speaker and language embeddings, the deterministic duration
+   predictor, 16 kHz, `multilingual_cleaners`) with its `speakers.json` and
+   `language_ids.json`, saved as a Coqui-format checkpoint and served through
+   the micro-batcher: 8 concurrent requests over 4 speakers and 3 languages
+   in one batch of 72 K1 launches, each reply of its row's length; then
+   serially (`serving multispeaker ...` lines); the served batch against the
+   plain MRF; at noise scale 0 each row of the batch against the same row
+   decoded alone with its ids at the batch's decode length; two speakers
+   giving different waveforms; a profile of the batched call; then one
+   request to a YourTTS-shaped VITS (512-wide d-vectors from a file,
+   ResBlock2, 10 text-encoder layers), which launches K1 no time;
+11. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
 
 Each serving phase's requests are a main path: the launch counts are set to
 0 just before them and read just after. Phases 5 and 6 take the locked
@@ -104,6 +116,25 @@ BATCH_REQUESTS = [
     "A rod is used to catch pink salmon. The source of the huge river is the clear spring.",
 ]
 GATHER_WINDOW_S = 0.05  # the batcher's gather window in the batched phase, so the 8 requests meet
+# the multi-speaker phase's 8 concurrent requests (text, speaker, language): 11 distinct sentences
+SPEAKERS = {"spk_a": 0, "spk_b": 1, "spk_c": 2, "spk_d": 3}
+LANGUAGES = {"en": 0, "fr": 1, "de": 2}
+MULTISPEAKER_REQUESTS = [
+    ("Be a voice, not an echo.", "spk_a", "en"),
+    ("Le chat dort sur le lit. Il fait beau ce soir.", "spk_b", "fr"),
+    ("The birch canoe slid on the smooth planks.", "spk_c", "en"),
+    ("Der Hund spielt im Garten.", "spk_d", "de"),
+    ("Glue the sheet to the dark blue background. It is easy to tell the depth of a well.", "spk_a", "en"),
+    ("La mer est calme ce matin.", "spk_c", "fr"),
+    ("These days a chicken leg is a rare dish.", "spk_b", "en"),
+    ("Ich lese gern am Abend. Das Buch ist neu.", "spk_d", "de"),
+]
+# the multilingual recipe's character set (recipes/multilingual/vits_tts/train_vits_tts.py), its
+# punctuation held once, in MULTILINGUAL_PUNCTUATIONS
+MULTILINGUAL_PUNCTUATIONS = "!¡'(),-.:;¿? "
+MULTILINGUAL_CHARACTERS = "".join(dict.fromkeys(
+    c for c in "!¡'(),-.:;¿?abcdefghijklmnopqrstuvwxyzµßàáâäåæçèéêëìíîïñòóôöùúûüąćęłńœśşźżƒабвгдежзийклмнопрстуфхц"
+               "чшщъыьэюяёєіїґӧ «°±µ»$%&‘’‚“`”„" if c not in MULTILINGUAL_PUNCTUATIONS))
 F32_TOL = 2e-4  # the bar of tests/test_hifigan_pallas.py
 K2_SHAPE = dict(B=5, T=11776, R=512, F=512, C=512)  # 46-frame folds of 256 samples: 5 for a 200-frame sentence
 K2_TOL = 1e-4  # score of the kernel's draw below the plain version's best, teacher-forced
@@ -459,8 +490,9 @@ def save_glow_wavernn(tmp: str, device: str = "cuda") -> dict:
     return paths
 
 
-def post(url: str, text: str):
-    return urllib.request.Request(url, data=json.dumps({"text": text}).encode(), method="POST",
+def post(url: str, text: str, speaker: str = "", language: str = ""):
+    body = {"text": text, **({"speaker_id": speaker} if speaker else {}), **({"language_id": language} if language else {})}
+    return urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
                                   headers={"Content-Type": "application/json"})
 
 
@@ -610,8 +642,9 @@ def check_against_plain(model, tol: float = 1e-3):
 def record_inference(model):
     """Wrap `model.inference` so that each call's rows are recorded: the
     token ids of each row (to its `x_lengths`), its `y_lengths`, and the
-    call's padded `x` and `x_lengths` as given. Returns the list of calls and
-    a function that takes the wrapper off."""
+    call's padded `x`, `x_lengths` and per-row speaker, language and
+    d-vector inputs as given. Returns the list of calls and a function that
+    takes the wrapper off."""
     import numpy as np
 
     calls = []
@@ -621,8 +654,10 @@ def record_inference(model):
         out = orig(x, aux_input=aux_input, **kwargs)
         ids = np.asarray(x).reshape(-1, np.asarray(x).shape[-1])
         x_lengths = np.asarray((aux_input or {}).get("x_lengths", [ids.shape[1]] * ids.shape[0]))
+        cond = {k: np.array(v) for k, v in (aux_input or {}).items()
+                if k in ("speaker_ids", "language_ids", "d_vectors") and v is not None}
         calls.append(([tuple(ids[i, : x_lengths[i]].tolist()) for i in range(len(ids))],
-                      out["y_lengths"].cpu().numpy().tolist(), ids.copy(), x_lengths.copy()))
+                      out["y_lengths"].cpu().numpy().tolist(), ids.copy(), x_lengths.copy(), cond))
         return out
 
     model.inference = recording
@@ -660,12 +695,13 @@ def check_replies(synth, replies, calls) -> int:
     return total
 
 
-def serve_batched(paths: dict, device: str = "cuda") -> dict:
-    """The VITS batched serving phase: BATCH_REQUESTS sent together through the
-    micro-batcher, then one after another on the locked path; then a batched
-    call against the plain MRF and a profile of one batched call of 8 rows."""
-    import numpy as np
-
+def serve_batched(paths: dict, requests=None, name: str = "", device: str = "cuda") -> dict:
+    """A VITS batched serving phase: `requests` ((text, speaker, language)
+    triples, BATCH_REQUESTS by default) sent together through the
+    micro-batcher, then one after another on the locked path; then the
+    served batch against the plain MRF. The lines read `serving
+    {name}batched ...`; the result holds the served model and its largest
+    batch (`x`, `x_lengths`, per-row ids) for the caller's checks."""
     from tpu_tts_torch.ops import hifigan_mrf
     from tpu_tts_torch.server.server import TTSHandler, create_server
 
@@ -681,27 +717,28 @@ def serve_batched(paths: dict, device: str = "cuda") -> dict:
     model = synth.tts_model
     dec = model.net.waveform_decoder
     per_call = sum(hifigan_mrf.launches_per_stage(dec.mrf_stage(i)) for i in range(dec.num_upsamples))
-    sentences = [synth.split_into_sentences(t) for t in BATCH_REQUESTS]
+    requests = requests or [(t, "", "") for t in BATCH_REQUESTS]
+    sentences = [synth.split_into_sentences(t) for t, _, _ in requests]
     n_sentences = sum(len(s) for s in sentences)
 
-    def request(text):
+    def request(req):
         try:
-            with urllib.request.urlopen(post(url, text), timeout=600) as r:
-                return text, r.status, r.read()
+            with urllib.request.urlopen(post(url, *req), timeout=600) as r:
+                return req[0], r.status, r.read()
         except urllib.error.HTTPError as e:
-            raise AssertionError(f"/api/tts gave HTTP {e.code} for {text!r}: {e.read()[:2000]!r}") from None
+            raise AssertionError(f"/api/tts gave HTTP {e.code} for {req!r}: {e.read()[:2000]!r}") from None
 
     def concurrently():
-        replies = [None] * len(BATCH_REQUESTS)
+        replies = [None] * len(requests)
         errors = []
 
         def go(i):
             try:
-                replies[i] = request(BATCH_REQUESTS[i])
+                replies[i] = request(requests[i])
             except Exception as e:  # raised below, in the main thread
                 errors.append(e)
 
-        threads = [threading.Thread(target=go, args=(i,)) for i in range(len(BATCH_REQUESTS))]
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(len(requests))]
         for t in threads:
             t.start()
         for t in threads:
@@ -721,22 +758,22 @@ def serve_batched(paths: dict, device: str = "cuda") -> dict:
         launches_b = hifigan_mrf.launches
         samples_b = check_replies(synth, replies, calls)
         batches, rows, sizes = batcher.batches_run - b0, batcher.rows_run - r0, batcher.batch_sizes[s0:]
-        if batches >= len(BATCH_REQUESTS) or batches != len(calls) or rows != n_sentences:
-            raise AssertionError(f"{len(BATCH_REQUESTS)} concurrent requests of {n_sentences} sentences ran "
+        if batches >= len(requests) or batches != len(calls) or rows != n_sentences:
+            raise AssertionError(f"{len(requests)} concurrent requests of {n_sentences} sentences ran "
                                  f"{batches} batches of {rows} rows ({len(calls)} inference calls)")
         if launches_b != per_call * len(calls):
             raise AssertionError(f"the batched requests launched hifigan_mrf {launches_b} times for {len(calls)} "
                                  f"inference calls ({per_call} a call)")
 
-        served_x, served_lengths = max(calls, key=lambda c: len(c[0]))[2:]  # the largest batch served
+        served = max(calls, key=lambda c: len(c[0]))[2:]  # x, x_lengths and ids of the largest batch served
 
         TTSHandler._batcher = None  # the locked path
-        for text in BATCH_REQUESTS:  # warm-up round at the B = 1 shapes, not counted
-            request(text)
+        for req in requests:  # warm-up round at the B = 1 shapes, not counted
+            request(req)
         calls.clear()
         hifigan_mrf.launches = 0
         t0 = time.perf_counter()
-        serial = [request(text) for text in BATCH_REQUESTS]
+        serial = [request(req) for req in requests]
         wall_s = time.perf_counter() - t0
         launches_s = hifigan_mrf.launches
         samples_s = check_replies(synth, serial, calls)
@@ -753,22 +790,17 @@ def serve_batched(paths: dict, device: str = "cuda") -> dict:
                        "hifigan_mrf_launches": launches_s},
         }
         for mode, m in modes.items():
-            log(f"serving {mode}: requests={len(BATCH_REQUESTS)} sentences={n_sentences} wall_s={m['wall_s']:.4f} "
+            log(f"serving {name}{mode}: requests={len(requests)} sentences={n_sentences} wall_s={m['wall_s']:.4f} "
                 f"audio_s={m['audio_s']:.4f} audio_s_per_wall_s={m['audio_s_per_wall_s']:.4f} "
                 f"batches_run={m['batches_run']} rows_run={m['rows_run']} padded_B={m['padded_B']} "
                 f"hifigan_mrf_launches={m['hifigan_mrf_launches']}")
         ratio = modes["batched"]["audio_s_per_wall_s"] / modes["serial"]["audio_s_per_wall_s"]
-        log(f"serving batched/serial audio_s_per_wall_s ratio={ratio:.4f}")
+        log(f"serving {name}batched/serial audio_s_per_wall_s ratio={ratio:.4f}")
 
-        flat = [s for sents in sentences for s in sents]
-        check_batch_against_plain(model, *pad_rows(model, [flat[i] for i in (0, 1, 5, 9)]), "4 rows")
-        check_batch_against_plain(model, served_x, served_lengths, "the served batch")
-        x, x_lengths = pad_rows(model, flat[:8])
-        aux = {"x_lengths": x_lengths}
-        prof = profile_call(lambda: model.inference(x, aux_input=aux),
-                            {"model": "vits", "call": "batched inference", "rows": 8, "tokens": x_lengths.tolist()})
+        check_batch_against_plain(model, *served, label=f"the served {name}batch")
         return {"modes": modes, "ratio": ratio, "launches": launches_b, "launches_per_batch": launches_b // batches,
-                "profile": prof}
+                "batches": batches, "model": model, "served": served,
+                "sentences": [s for sents in sentences for s in sents]}
     finally:
         server.shutdown()
         server.server_close()
@@ -788,15 +820,24 @@ def pad_rows(model, texts):
     return x, np.array([len(r) for r in ids])
 
 
-def check_batch_against_plain(model, x, x_lengths, label: str, tol: float = 1e-3):
-    """One batched inference of mixed-length rows, the kernel path against the
-    same model with the plain MRF version (as `check_against_plain`)."""
+def profile_batch(model, x, x_lengths, cond, label: str) -> dict:
+    """A profile line of one batched `inference` call of these rows."""
+    aux = {"x_lengths": x_lengths, **cond}
+    return profile_call(lambda: model.inference(x, aux_input=aux), {
+        "model": "vits", "call": f"{label}batched inference", "rows": len(x), "tokens": x_lengths.tolist(),
+        **{k: v.tolist() for k, v in cond.items() if k != "d_vectors"}})
+
+
+def check_batch_against_plain(model, x, x_lengths, cond=None, label: str = "", tol: float = 1e-3):
+    """One batched inference of mixed-length rows (with their speaker and
+    language inputs `cond`), the kernel path against the same model with the
+    plain MRF version (as `check_against_plain`)."""
     import torch
 
     from tpu_tts_torch.ops import hifigan_mrf
     from tpu_tts_torch.vocoder.models import hifigan_generator
 
-    aux = {"x_lengths": x_lengths}
+    aux = {"x_lengths": x_lengths, **(cond or {})}
     got = model.inference(x, aux_input=aux)
     hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
     try:
@@ -809,6 +850,137 @@ def check_batch_against_plain(model, x, x_lengths, label: str, tol: float = 1e-3
         f"shape={tuple(got['model_outputs'].shape)} max_abs_err={err:.3e} (tol {tol:.0e})")
     if y != ref["y_lengths"].tolist() or len(set(y)) < 2 or not torch.isfinite(got["model_outputs"]).all() or err > tol:
         raise AssertionError(f"the batched waveform disagrees with the plain path: {err} > {tol} or y {y}")
+
+
+def save_multispeaker(tmp: str) -> dict:
+    """The multilingual recipe's VITS at full width (hidden 192, 6 text-encoder
+    layers, 4 flows, HiFi-GAN 512 → 32 with ResBlock1, 16 kHz, hop 256) with
+    its speakers and language files in `tmp`, seeded random weights, saved as
+    a Coqui-format checkpoint."""
+    from tpu_tts_torch.configs.vits_config import VitsArgs, VitsAudioConfig, VitsConfig
+    from tpu_tts_torch.text.characters import CharactersConfig
+
+    files = {"speakers_file": os.path.join(tmp, "speakers.json"),
+             "language_ids_file": os.path.join(tmp, "language_ids.json")}
+    for key, ids in (("speakers_file", SPEAKERS), ("language_ids_file", LANGUAGES)):
+        with open(files[key], "w", encoding="utf-8") as f:
+            json.dump(ids, f)
+    config = VitsConfig(
+        model_args=VitsArgs(use_language_embedding=True, embedded_language_dim=4, use_speaker_embedding=True,
+                            use_sdp=False, **files),
+        audio=VitsAudioConfig(sample_rate=16000, win_length=1024, hop_length=256, num_mels=80, mel_fmin=0,
+                              mel_fmax=None),
+        use_speaker_embedding=True, text_cleaner="multilingual_cleaners", use_phonemes=False,
+        characters=CharactersConfig(pad="<PAD>", eos="<EOS>", bos="<BOS>", blank="<BLNK>",
+                                    characters=MULTILINGUAL_CHARACTERS, punctuations=MULTILINGUAL_PUNCTUATIONS, phonemes=None),
+    )
+    return save_model(tmp, config=config, coqui=True)
+
+
+def check_rows_alone(model, served, tol: float = 1e-3) -> dict:
+    """At noise scale 0: each row of the served batch against the same row
+    decoded alone with its own ids at the batch's decode length; then row 0
+    alone with another speaker, which must give another waveform."""
+    import numpy as np
+    import torch
+
+    x, x_lengths, cond = served
+    a = model.args
+    scales = a.inference_noise_scale, a.inference_noise_scale_dp
+    a.inference_noise_scale = a.inference_noise_scale_dp = 0.0
+    try:
+        batch = model.inference(x, aux_input={"x_lengths": x_lengths, **cond})
+        T_de = batch["alignments"].shape[1]
+        errs = []
+        for i in range(len(x)):
+            row = {k: v[i : i + 1] for k, v in cond.items()}
+            alone = model.inference(x[i : i + 1, : x_lengths[i]], aux_input={"x_lengths": x_lengths[i : i + 1], **row},
+                                    bucket=T_de)
+            if alone["alignments"].shape[1] != T_de or int(alone["y_lengths"][0]) != int(batch["y_lengths"][i]):
+                raise AssertionError(f"row {i} alone decoded {alone['alignments'].shape[1]} frames, "
+                                     f"y {int(alone['y_lengths'][0])} against {T_de}, {int(batch['y_lengths'][i])}")
+            errs.append(float((alone["model_outputs"][0] - batch["model_outputs"][i]).abs().max()))
+        other = {**{k: v[:1] for k, v in cond.items()},
+                 "speaker_ids": (cond["speaker_ids"][:1] + 1) % len(SPEAKERS)}
+        moved = model.inference(x[:1, : x_lengths[0]], aux_input={"x_lengths": x_lengths[:1], **other}, bucket=T_de)
+        n = int(min(moved["y_lengths"][0], batch["y_lengths"][0])) * model.ap.hop_length
+        speaker_gap = float((moved["model_outputs"][0, :n] - batch["model_outputs"][0, :n]).abs().max())
+    finally:
+        a.inference_noise_scale, a.inference_noise_scale_dp = scales
+    row = {"rows": len(x), "decode_frames": T_de, "speaker_ids": cond["speaker_ids"].tolist(),
+           "language_ids": cond["language_ids"].tolist(), "max_abs_err": max(errs), "tol": tol,
+           "other_speaker_max_abs_diff": speaker_gap}
+    log("multispeaker rows alone vs batched " + json.dumps(row))
+    if not np.isfinite(errs).all() or max(errs) > tol:
+        raise AssertionError(f"a row decoded alone disagrees with its batched row: {row}")
+    if not speaker_gap > tol or not torch.isfinite(batch["model_outputs"]).all():
+        raise AssertionError(f"two speakers gave the same waveform: {row}")
+    return row
+
+
+def save_yourtts(tmp: str) -> dict:
+    """A YourTTS-shaped VITS at full width: 512-wide d-vectors from a file
+    (two speakers of three clips each), the stochastic duration predictor,
+    10 text-encoder layers and a ResBlock2 decoder, 16 kHz; seeded random
+    weights, saved as a Coqui-format checkpoint."""
+    import numpy as np
+
+    from tpu_tts_torch.configs.vits_config import VitsArgs, VitsAudioConfig, VitsConfig
+
+    rng = np.random.default_rng(SEED)
+    d_vector_file = os.path.join(tmp, "speakers_dvec.json")
+    with open(d_vector_file, "w", encoding="utf-8") as f:
+        json.dump({f"{spk}_{i}": {"name": spk, "embedding": (0.05 * rng.standard_normal(512)).tolist()}
+                   for spk in ("vctk_p225", "vctk_p226") for i in range(3)}, f)
+    config = VitsConfig(
+        model_args=VitsArgs(d_vector_file=[d_vector_file], use_d_vector_file=True, d_vector_dim=512,
+                            num_layers_text_encoder=10, resblock_type_decoder="2"),
+        audio=VitsAudioConfig(sample_rate=16000, hop_length=256, win_length=1024, fft_size=1024, mel_fmin=0.0,
+                              mel_fmax=None, num_mels=80),
+        text_cleaner="multilingual_cleaners", use_speaker_embedding=False, use_d_vector_file=True,
+        d_vector_file=[d_vector_file], d_vector_dim=512,
+    )
+    return save_model(tmp, config=config, coqui=True)
+
+
+def serve_yourtts(paths: dict, device: str = "cuda") -> dict:
+    """One request to the YourTTS-shaped model through the server: a finite
+    reply of its row's length, and no K1 launch (ResBlock2 runs in plain
+    PyTorch, as in the JAX package)."""
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.server.server import TTSHandler, create_server
+
+    server = create_server(argparse.Namespace(**paths, device=device, host="127.0.0.1", port=0, max_batch=16))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/api/tts"
+    synth = TTSHandler.synthesizer
+    try:
+        calls, unwrap = record_inference(synth.tts_model)
+        text = MULTISPEAKER_REQUESTS[2][0]
+        hifigan_mrf.launches = 0
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(post(url, text, "vctk_p226"), timeout=600) as r:
+            reply = (text, r.status, r.read())
+        wall = time.perf_counter() - t0
+        launches = hifigan_mrf.launches
+        unwrap()
+        samples = check_replies(synth, [reply], calls)
+        d = calls[0][4]["d_vectors"]
+        row = {"chars": len(text), "y_lengths": calls[0][1], "samples": samples, "wall_s": wall,
+               "d_vector_dim": int(d.shape[-1]), "resblock_type": synth.tts_config.model_args.resblock_type_decoder,
+               "hifigan_mrf_launches": launches}
+        log("yourtts request " + json.dumps(row))
+        if launches != 0 or d.shape != (1, 512):
+            raise AssertionError(f"the ResBlock2 request launched hifigan_mrf or lost its d-vector: {row}")
+        return row
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        if TTSHandler._batcher is not None:
+            TTSHandler._batcher.close()
+            TTSHandler._batcher = None
 
 
 def glow_griffin_lim(paths: dict, device: str = "cuda") -> dict:
@@ -871,6 +1043,19 @@ def main() -> int:
         config = VitsConfig(use_phonemes=True, phonemizer="en_rules", phoneme_language="en",
                             text_cleaner="phoneme_cleaners")
         batched = serve_batched(save_model(tmp, config=config, coqui=True))
+        model, flat = batched.pop("model"), batched["sentences"]
+        check_batch_against_plain(model, *pad_rows(model, [flat[i] for i in (0, 1, 5, 9)]), label="4 rows")
+        profile_batch(model, *pad_rows(model, flat[:8]), {}, "")
+        del model
+    with tempfile.TemporaryDirectory() as tmp:
+        multi = serve_batched(save_multispeaker(tmp), MULTISPEAKER_REQUESTS, "multispeaker ")
+        if multi["batches"] != 1 or multi["launches_per_batch"] != 72:
+            raise AssertionError(f"the multi-speaker requests ran {multi['batches']} batches of "
+                                 f"{multi['launches_per_batch']} K1 launches (1 of 72 expected)")
+        profile_batch(multi["model"], *multi["served"], "multispeaker ")
+        rows_alone = check_rows_alone(multi.pop("model"), multi["served"])
+    with tempfile.TemporaryDirectory() as tmp:
+        yourtts = serve_yourtts(save_yourtts(tmp))
 
     f32 = [r for r in rows if r["dtype"] == "float32"]
     served = next(r for r in k2_rows if r["mode"] == "sampled")  # the mode the vocoder serves
@@ -893,6 +1078,10 @@ def main() -> int:
         "shapes_b8": b8_rows,
         "batched_launches": batched["launches"],
         "launches_per_batch": batched["launches_per_batch"],
+        "multispeaker_launches": multi["launches"],
+        "launches_per_multispeaker_batch": multi["launches_per_batch"],
+        "multispeaker_rows_alone_max_abs_err": rows_alone["max_abs_err"],
+        "yourtts_launches": yourtts["hifigan_mrf_launches"],
     }, {
         "name": "wavernn_sampler",
         "route": "cuda",

@@ -236,6 +236,38 @@ def test_batcher_on_the_card_runs_k1_once_a_batch():
         assert float((got - serial).abs().max()) <= 1e-4
 
 
+@pytest.mark.cuda
+def test_conditioned_generator_through_k1():
+    """A speaker-conditioned generator (`cond_layer` from g [B, 16, 1]) on
+    the card: every stage through K1 (18 launches a stage), the waveform
+    within 1e-4 of the same generator with the plain MRF, and two speakers
+    giving different waveforms."""
+    from tpu_tts_torch.vocoder.models import hifigan_generator
+
+    _need_cuda()
+    torch.manual_seed(0)
+    dec = hifigan_generator.HifiganGenerator(
+        in_channels=32, upsample_initial_channel=128, upsample_factors=(4, 4), upsample_kernel_sizes=(8, 8),
+        cond_channels=16).cuda().eval()
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 32, 50, generator=gen).cuda()
+    g = torch.randn(2, 16, 1, generator=gen).cuda()
+    with torch.no_grad():
+        before = hifigan_mrf.launches
+        got = dec(x, g=g)
+        launched = hifigan_mrf.launches - before
+        other = dec(x, g=g.flip(0))
+        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
+        try:
+            ref = dec(x, g=g)
+        finally:
+            hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
+    torch.cuda.synchronize()
+    assert launched == 2 * 18 and got.shape == (2, 1, 800)
+    assert float((got - ref).abs().max()) <= 1e-4
+    assert float((got - other).abs().max()) > 1e-3
+
+
 def test_wavernn_plan_holds_the_weights_in_shared_memory():
     """K2's launch plan: at the served widths on 132 SMs the 3.93 M loop
     weights live in the blocks' shared memory (one block an SM, four columns

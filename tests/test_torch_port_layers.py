@@ -113,7 +113,10 @@ def test_port_imports_neither_jax_nor_tpu_tts():
         import chip_smoke
         bad = sorted(m for m in sys.modules if m in ("jax", "flax", "tpu_tts") or m.startswith(("jax.", "flax.", "tpu_tts.")))
         bad += [m for m in ("tpu_tts_torch.api", "tpu_tts_torch.bin.synthesize", "tpu_tts_torch.zoo.manage",
-                            "tpu_tts_torch.text.phonemizers.en_rules", "tpu_tts_torch.infer.batcher")
+                            "tpu_tts_torch.text.phonemizers.en_rules", "tpu_tts_torch.infer.batcher",
+                            "tpu_tts_torch.managers", "tpu_tts_torch.text.phonemizers.ja_jp_phonemizer",
+                            "tpu_tts_torch.text.phonemizers.ko_kr_phonemizer",
+                            "tpu_tts_torch.text.phonemizers.bn_phonemizer")
                 if m not in sys.modules]  # the serving modules are among those walked
         print(len([m for m in sys.modules if m.startswith("tpu_tts_torch.")]), bad)
         """

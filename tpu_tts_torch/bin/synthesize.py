@@ -25,6 +25,10 @@ Examples:
   # with an external vocoder
   python -m tpu_tts_torch.bin.synthesize --text "Hello." --model_path glow.pth --config_path glow.json \\
       --vocoder_path wavernn.pth --vocoder_config_path wavernn.json --out_path out.wav
+  # a multi-speaker, multilingual model: pick a speaker and a language by name
+  python -m tpu_tts_torch.bin.synthesize --text "Bonjour." --model_path model.pth --config_path config.json \\
+      --speaker_idx spk_b --language_idx fr --out_path out.wav
+  python -m tpu_tts_torch.bin.synthesize --model_path model.pth --config_path config.json --list_speaker_idxs
   # list released models (the registry; downloading them is not ported)
   python -m tpu_tts_torch.bin.synthesize --list_models
 """

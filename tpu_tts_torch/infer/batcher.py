@@ -12,7 +12,11 @@ Natural batching: the first request runs at once (after an optional
 gather window); requests that arrive while a batch runs queue up and form
 the next one. All queued sentences stack into one `[B, T]` id batch: rows
 right-padded to the longest row with per-row `x_lengths`, and B padded to a
-power of two by repeating row 0, whose outputs are dropped. One
+power of two by repeating row 0, whose outputs are dropped. Each row
+carries its request's speaker id, d-vector and language id
+(`tpu_tts/infer/batcher.py`:166-180): when any row of a call has one, every
+row gets one, a row without an id taking 0 and a row without a d-vector
+zeros; a pad row replicates row 0's. One
 `inference` call serves at most `max_batch` rows; its waveform
 `[B, T·hop, 1]` is copied to the host once, cropped per row at
 `y_lengths · hop`, trimmed when the audio config says so, and reassembled
@@ -36,16 +40,38 @@ from typing import List, Optional
 
 import numpy as np
 
-from tpu_tts_torch.infer.synthesis import trim_silence
+from tpu_tts_torch.infer.synthesis import language_of_id, trim_silence
 from tpu_tts_torch.infer.synthesizer import SENTENCE_GAP
 
 
 class _Job:
-    __slots__ = ("sent_ids", "out")
+    __slots__ = ("sent_ids", "speaker_id", "d_vector", "language_id", "out")
 
-    def __init__(self, sent_ids):
+    def __init__(self, sent_ids, speaker_id=None, d_vector=None, language_id=None):
         self.sent_ids = sent_ids  # one int64 array [T_i] per sentence
+        self.speaker_id = speaker_id
+        self.d_vector = d_vector
+        self.language_id = language_id
         self.out: "queue.Queue" = queue.Queue()
+
+
+def row_conditioning(picked: List[_Job]) -> dict:
+    """The `speaker_ids`, `d_vectors` and `language_ids` of a call whose rows
+    belong to the jobs `picked`, one job a row; a key only when some row has
+    a value for it."""
+    aux = {}
+    if any(j.speaker_id is not None for j in picked):
+        aux["speaker_ids"] = np.array([j.speaker_id or 0 for j in picked], dtype=np.int64)
+    if any(j.d_vector is not None for j in picked):
+        dim = next(np.asarray(j.d_vector).size for j in picked if j.d_vector is not None)
+        aux["d_vectors"] = np.stack([
+            np.asarray(j.d_vector, dtype=np.float32).reshape(-1) if j.d_vector is not None
+            else np.zeros((dim,), np.float32)
+            for j in picked
+        ])
+    if any(j.language_id is not None for j in picked):
+        aux["language_ids"] = np.array([j.language_id or 0 for j in picked], dtype=np.int64)
+    return aux
 
 
 def _pow2_ceil(n: int) -> int:
@@ -97,10 +123,11 @@ class TTSMicroBatcher:
         if self._closed:
             raise RuntimeError("batcher is closed")
         speaker_id, d_vector = self.synth.resolve_speaker(speaker_name, speaker_wav)
-        if speaker_id is not None or d_vector is not None or self.synth.resolve_language(language_name) is not None:
-            raise NotImplementedError("per-row speaker and language conditioning is not ported yet (ROADMAP.md, M5c)")
+        language_id = self.synth.resolve_language(language_name)
+        lang = language_of_id(self.model, language_id)
         sents = self.synth.split_into_sentences(text)
-        job = _Job([np.asarray(self.model.tokenizer.text_to_ids(s), dtype=np.int64) for s in sents])
+        job = _Job([np.asarray(self.model.tokenizer.text_to_ids(s, language=lang), dtype=np.int64) for s in sents],
+                   speaker_id, d_vector, language_id)
         self._in.put(job)
         result = job.out.get()
         if isinstance(result, Exception):
@@ -154,7 +181,8 @@ class TTSMicroBatcher:
                 _, ids = chunk[i if i < len(chunk) else 0]  # pad rows repeat row 0
                 x[i, : ids.shape[0]] = ids
                 x_lengths[i] = ids.shape[0]
-            out = model.inference(x, aux_input={"x_lengths": x_lengths})
+            picked = [chunk[i if i < len(chunk) else 0][0] for i in range(B)]
+            out = model.inference(x, aux_input={"x_lengths": x_lengths, **row_conditioning(picked)})
             wav = out["model_outputs"][..., 0].float().cpu().numpy()  # [B, T·hop], one copy a batch
             y_lengths = out["y_lengths"].cpu().numpy()
             self.batches_run += 1

@@ -5,7 +5,9 @@ Counterpart of `tpu_tts/infer/synthesis.py` (`trim_silence`:16,
 waveform; a mel model (Glow-TTS) gives its mel, which the synthesizer hands
 to a vocoder, or which Griffin-Lim turns into a waveform on the host when
 `use_griffin_lim` is set. `do_trim_silence` cuts the waveform at
-`ap.find_endpoint`.
+`ap.find_endpoint`. A speaker id, a d-vector and a language id reach the
+model as one-row `speaker_ids`, `d_vectors` and `language_ids`; the
+language's name also picks the tokenizer's phonemizer, as in JAX.
 """
 
 from typing import Dict, Optional
@@ -28,6 +30,15 @@ def inv_spectrogram(postnet_output: np.ndarray, ap, CONFIG, seed=None) -> np.nda
     return ap.inv_melspectrogram(postnet_output.T, seed=seed)
 
 
+def language_of_id(model, language_id: Optional[int]) -> Optional[str]:
+    """The name the model's language manager gives `language_id`, else None."""
+    manager = getattr(model, "language_manager", None)
+    if language_id is None or manager is None:
+        return None
+    names = [k for k, v in manager.name_to_id.items() if v == language_id]
+    return names[0] if names else None
+
+
 def synthesis(model, text: str, CONFIG, speaker_id: Optional[int] = None, use_griffin_lim: bool = False,
               do_trim_silence: bool = False, d_vector=None, language_id: Optional[int] = None,
               seed: int = 0) -> Dict:
@@ -36,10 +47,16 @@ def synthesis(model, text: str, CONFIG, speaker_id: Optional[int] = None, use_gr
     `model_outputs` (a mel model's mel `[T, C]` of the valid length),
     `alignments` and `text_inputs`. `seed` seeds the model's noise and
     Griffin-Lim's first phases."""
-    if speaker_id is not None or d_vector is not None or language_id is not None:
-        raise NotImplementedError("multi-speaker and multi-language synthesis is not ported yet (ROADMAP.md, M5c)")
-    token_ids = np.asarray(model.tokenizer.text_to_ids(text), dtype=np.int64)
-    outputs = model.inference(token_ids, aux_input={"seed": seed})
+    token_ids = np.asarray(model.tokenizer.text_to_ids(text, language=language_of_id(model, language_id)),
+                           dtype=np.int64)
+    aux_input = {"seed": seed}
+    if speaker_id is not None:
+        aux_input["speaker_ids"] = [speaker_id]
+    if d_vector is not None:
+        aux_input["d_vectors"] = np.asarray(d_vector, dtype=np.float32).reshape(1, -1)
+    if language_id is not None:
+        aux_input["language_ids"] = [language_id]
+    outputs = model.inference(token_ids, aux_input=aux_input)
     model_outputs = outputs["model_outputs"].float().cpu().numpy()
     y_len = int(outputs["y_lengths"][0])
     wav = None

@@ -18,9 +18,14 @@ Where the port differs from the JAX synthesizer on purpose (ROADMAP.md,
 queue 3): the vocoder's waveform is taken as the 1-D array WaveRNN returns
 (the JAX synthesizer indexes it `[0, :, 0]` and so fails with WaveRNN); and
 Griffin-Lim's first phases are drawn from the request's `seed`, so a
-request is repeatable. Speaker and language managers come with
-multi-speaker models (M5c); until then both are None and the resolvers
-return no ids, as the JAX ones do for a model without managers.
+request is repeatable.
+
+The speaker and language managers are the model's (`tpu_tts_torch/
+managers.py`): a speaker name resolves to its id in the model's embedding
+table, or with d-vectors to the mean of its clips' d-vectors; a language
+name to its id. A model without managers resolves no ids, as in JAX. Voice
+conversion (`reference_wav`) needs the posterior encoder (ROADMAP.md, M6)
+and a d-vector from `speaker_wav` the speaker encoder (M9): both raise.
 """
 
 import time
@@ -98,6 +103,9 @@ class Synthesizer:
     def resolve_speaker(self, speaker_name: str = "", speaker_wav=None):
         """(speaker_id, d_vector) of a request, shared by `tts` and the
         micro-batcher; (None, None) for a model without a speaker manager."""
+        if speaker_wav:
+            raise NotImplementedError("a d-vector from `speaker_wav` needs the speaker encoder, not ported yet "
+                                      "(ROADMAP.md, M9)")
         speaker_id = None
         d_vector = None
         if self.speaker_manager is not None and getattr(self.speaker_manager, "name_to_id", None):
@@ -117,8 +125,6 @@ class Synthesizer:
                         " [!] Looks like you are using a multi-speaker model. "
                         "You need to define either a `speaker_idx` or a `speaker_wav` to use a multi-speaker model."
                     )
-        if speaker_wav is not None and self.speaker_manager is not None and self.speaker_manager.encoder is not None:
-            d_vector = self.speaker_manager.compute_embedding_from_clip(speaker_wav)
         return speaker_id, d_vector
 
     def resolve_language(self, language_name: str = ""):
@@ -148,8 +154,10 @@ class Synthesizer:
         model's noise and, for a mel model without a vocoder, Griffin-Lim."""
         if not text and not reference_wav:
             raise ValueError("You need to define either `text` or a `reference_wav` to use the Coqui TTS API.")
-        if reference_wav is not None or style_wav is not None:
-            raise NotImplementedError("voice transfer and style references are not ported yet (ROADMAP.md)")
+        if reference_wav is not None:
+            raise NotImplementedError("voice conversion needs the posterior encoder, not ported yet (ROADMAP.md, M6)")
+        if style_wav is not None:
+            raise NotImplementedError("style references come with the models that read them (ROADMAP.md, M9)")
         start = time.time()
         sens = self.split_into_sentences(text) if split_sentences else [text]
         speaker_id, d_vector = self.resolve_speaker(speaker_name, speaker_wav)

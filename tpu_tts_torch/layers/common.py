@@ -101,10 +101,13 @@ class LayerNorm(nn.Module):
 
 
 class WN(nn.Module):
-    """Gated WaveNet stack with weight norm, x `[B, C, T]`. Speaker
-    conditioning (`cond_layer`) comes with multi-speaker VITS (ROADMAP.md)."""
+    """Gated WaveNet stack with weight norm, x `[B, C, T]`. With
+    `cond_channels`, `cond_layer` maps g `[B, C_g, 1]` to 2·hidden channels
+    per layer, layer i taking slice i of them (`tpu_tts/layers/common.py`
+    :283-297)."""
 
-    def __init__(self, hidden_channels: int, kernel_size: int, dilation_rate: int, num_layers: int):
+    def __init__(self, hidden_channels: int, kernel_size: int, dilation_rate: int, num_layers: int,
+                 cond_channels: int = 0):
         super().__init__()
         self.hidden_channels = hidden_channels
         self.num_layers = num_layers
@@ -116,12 +119,17 @@ class WN(nn.Module):
             WNConv1d(hidden_channels, 2 * hidden_channels if i < num_layers - 1 else hidden_channels, 1)
             for i in range(num_layers)
         )
+        if cond_channels:
+            self.cond_layer = WNConv1d(cond_channels, 2 * hidden_channels * num_layers, 1)
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, g=None):
         h = self.hidden_channels
         output = torch.zeros_like(x)
+        g_all = self.cond_layer(g) if g is not None else None
         for i in range(self.num_layers):
             z = self.in_layers[i](x)
+            if g_all is not None:
+                z = z + g_all[:, i * 2 * h : (i + 1) * 2 * h]
             acts = torch.tanh(z[:, :h]) * torch.sigmoid(z[:, h:])
             res_skip = self.res_skip_layers[i](acts)
             if i < self.num_layers - 1:
@@ -152,17 +160,28 @@ class ResidualConv1dLayerNormBlock(nn.Module):
 
 
 class DurationPredictor(nn.Module):
-    """[k-conv → relu → LN] × 2 → 1×1 conv: log durations `[B, 1, T]`."""
+    """[k-conv → relu → LN] × 2 → 1×1 conv: log durations `[B, 1, T]`. With
+    `cond_channels` / `language_emb_dim`, 1×1 projections of g and the
+    language embedding (`[B, C, 1]`) are added to the input first."""
 
-    def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int):
+    def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int, cond_channels: int = 0,
+                 language_emb_dim: int = 0):
         super().__init__()
         self.conv_1 = Conv1d(in_channels, hidden_channels, kernel_size)
         self.norm_1 = LayerNorm(hidden_channels)
         self.conv_2 = Conv1d(hidden_channels, hidden_channels, kernel_size)
         self.norm_2 = LayerNorm(hidden_channels)
         self.proj = nn.Conv1d(hidden_channels, 1, 1)
+        if cond_channels:
+            self.cond = nn.Conv1d(cond_channels, in_channels, 1)
+        if language_emb_dim:
+            self.cond_lang = nn.Conv1d(language_emb_dim, in_channels, 1)
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, g=None, lang_emb=None):
+        if g is not None:
+            x = x + self.cond(g)
+        if lang_emb is not None:
+            x = x + self.cond_lang(lang_emb)
         x = self.norm_1(torch.relu(self.conv_1(x * x_mask)))
         x = self.norm_2(torch.relu(self.conv_2(x * x_mask)))
         return self.proj(x * x_mask) * x_mask

@@ -208,9 +208,13 @@ class ConvFlow(nn.Module):
 
 class StochasticDurationPredictor(nn.Module):
     """Spline-flow duration predictor. Holds the posterior flows too, so a
-    Coqui state dict loads by name; only the reverse direction runs here."""
+    Coqui state dict loads by name; only the reverse direction runs here.
+    With `cond_channels` / `language_emb_dim`, 1×1 projections of g and the
+    language embedding are added after `pre` (`tpu_tts/layers/vits.py`
+    :263-288)."""
 
-    def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int, num_flows: int = 4):
+    def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int, num_flows: int = 4,
+                 cond_channels: int = 0, language_emb_dim: int = 0):
         super().__init__()
         self.pre = nn.Conv1d(in_channels, hidden_channels, 1)
         self.convs = DilatedDepthSeparableConv(hidden_channels, kernel_size, 3)
@@ -224,10 +228,20 @@ class StochasticDurationPredictor(nn.Module):
         self.post_flows = nn.ModuleList(
             [ElementwiseAffine(2)] + [ConvFlow(2, hidden_channels, kernel_size, 3) for _ in range(num_flows)]
         )
+        if cond_channels:
+            self.cond = nn.Conv1d(cond_channels, hidden_channels, 1)
+        if language_emb_dim:
+            self.cond_lang = nn.Conv1d(language_emb_dim, hidden_channels, 1)
 
-    def reverse(self, x, x_mask, noise: torch.Tensor, noise_scale: float = 1.0):
-        """x `[B, C, T]`, noise `[B, 2, T]` standard normal → logw `[B, 1, T]`."""
-        x = self.convs(self.pre(x), x_mask)
+    def reverse(self, x, x_mask, noise: torch.Tensor, noise_scale: float = 1.0, g=None, lang_emb=None):
+        """x `[B, C, T]`, noise `[B, 2, T]` standard normal, g and lang_emb
+        `[B, C_*, 1]` or None → logw `[B, 1, T]`."""
+        x = self.pre(x)
+        if g is not None:
+            x = x + self.cond(g)
+        if lang_emb is not None:
+            x = x + self.cond_lang(lang_emb)
+        x = self.convs(x, x_mask)
         x = self.proj(x) * x_mask
         flows = list(reversed(self.flows))
         flows = flows[:-2] + [flows[-1]]  # drop the unused extra flow
@@ -239,23 +253,29 @@ class StochasticDurationPredictor(nn.Module):
 
 
 class VitsTextEncoder(nn.Module):
-    """Embedding → rel-pos transformer → (h, m, logs, x_mask)."""
+    """Embedding → rel-pos transformer → (h, m, logs, x_mask). With
+    `language_emb_dim` the language embedding is concatenated to each token's
+    embedding, and the transformer and `proj` run at hidden + language
+    channels (`tpu_tts/layers/vits.py`:350-367)."""
 
     def __init__(self, n_vocab: int, out_channels: int, hidden_channels: int, hidden_channels_ffn: int,
-                 num_heads: int, num_layers: int, kernel_size: int):
+                 num_heads: int, num_layers: int, kernel_size: int, language_emb_dim: int = 0):
         super().__init__()
         self.hidden_channels = hidden_channels
         self.out_channels = out_channels
         self.emb = nn.Embedding(n_vocab, hidden_channels)
         nn.init.normal_(self.emb.weight, 0.0, hidden_channels**-0.5)
+        width = hidden_channels + language_emb_dim
         self.encoder = RelativePositionTransformer(
-            hidden_channels, hidden_channels_ffn, num_heads, num_layers, kernel_size, rel_attn_window_size=4
+            width, hidden_channels_ffn, num_heads, num_layers, kernel_size, rel_attn_window_size=4
         )
-        self.proj = nn.Conv1d(hidden_channels, out_channels * 2, 1)
+        self.proj = nn.Conv1d(width, out_channels * 2, 1)
 
-    def forward(self, x, x_lengths):
-        """x `[B, T]` token ids, x_lengths `[B]`."""
+    def forward(self, x, x_lengths, lang_emb=None):
+        """x `[B, T]` token ids, x_lengths `[B]`, lang_emb `[B, C_l, 1]` or None."""
         h = (self.emb(x) * math.sqrt(self.hidden_channels)).transpose(1, 2)  # [B, C, T]
+        if lang_emb is not None:
+            h = torch.cat([h, lang_emb.expand(-1, -1, h.shape[2])], dim=1)
         x_mask = sequence_mask(x_lengths, x.shape[1]).to(h.dtype)[:, None, :]
         h = self.encoder(h * x_mask, x_mask)
         stats = self.proj(h) * x_mask
@@ -266,34 +286,36 @@ class VitsTextEncoder(nn.Module):
 class ResidualCouplingLayer(nn.Module):
     """Mean-only affine coupling with a WN core."""
 
-    def __init__(self, channels: int, hidden_channels: int, kernel_size: int, dilation_rate: int, num_layers: int):
+    def __init__(self, channels: int, hidden_channels: int, kernel_size: int, dilation_rate: int, num_layers: int,
+                 cond_channels: int = 0):
         super().__init__()
         self.half = channels // 2
         self.pre = nn.Conv1d(self.half, hidden_channels, 1)
-        self.enc = WN(hidden_channels, kernel_size, dilation_rate, num_layers)
+        self.enc = WN(hidden_channels, kernel_size, dilation_rate, num_layers, cond_channels)
         self.post = nn.Conv1d(hidden_channels, self.half, 1)
         nn.init.zeros_(self.post.weight)
         nn.init.zeros_(self.post.bias)
 
-    def reverse(self, x, x_mask):
+    def reverse(self, x, x_mask, g=None):
         x0, x1 = x[:, : self.half], x[:, self.half :]
-        h = self.enc(self.pre(x0) * x_mask, x_mask)
+        h = self.enc(self.pre(x0) * x_mask, x_mask, g=g)
         m = self.post(h) * x_mask
         return torch.cat([x0, (x1 - m) * x_mask], dim=1)
 
 
 class ResidualCouplingBlocks(nn.Module):
-    """num_flows × [coupling, flip]; flips carry no parameters."""
+    """num_flows × [coupling, flip]; flips carry no parameters. g
+    `[B, C_g, 1]` conditions every coupling's WN."""
 
     def __init__(self, channels: int, hidden_channels: int, kernel_size: int, dilation_rate: int, num_layers: int,
-                 num_flows: int = 4):
+                 num_flows: int = 4, cond_channels: int = 0):
         super().__init__()
         self.flows = nn.ModuleList(
-            ResidualCouplingLayer(channels, hidden_channels, kernel_size, dilation_rate, num_layers)
+            ResidualCouplingLayer(channels, hidden_channels, kernel_size, dilation_rate, num_layers, cond_channels)
             for _ in range(num_flows)
         )
 
-    def reverse(self, x, x_mask):
+    def reverse(self, x, x_mask, g=None):
         for layer in reversed(self.flows):
-            x = layer.reverse(torch.flip(x, [1]), x_mask)
+            x = layer.reverse(torch.flip(x, [1]), x_mask, g=g)
         return x

@@ -1,0 +1,167 @@
+"""Speaker, language and embedding managers of the port.
+
+Counterpart of `tpu_tts/managers.py` (`load_file`:17, `BaseIDManager`:46,
+`EmbeddingManager`:76 with `get_mean_embedding`:144, `SpeakerManager`:182,
+`LanguageManager`:227), the surface of Coqui TTS's `managers.py`,
+`speakers.py` and `languages.py`. Id files map names to ids; embedding
+files are `{clip_name: {"name": speaker, "embedding": [...]}}`, stored as
+`.json`, a numpy-pickled `.npy` or a `.pth`. `d_vector_file` may be a list
+of such files, merged.
+
+Computing an embedding from a clip needs the speaker encoder, which is not
+ported: `init_encoder` and `compute_embedding_from_clip` raise (ROADMAP.md,
+M9). Ids from dataset samples, saving, random picks and the dataset
+balancers belong to training (M6).
+"""
+
+import json
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+def load_file(path: str):
+    if path.endswith(".json"):
+        with open(path, "r", encoding="utf-8") as f:
+            return json.load(f)
+    if path.endswith(".npy") or path.endswith(".npz"):
+        return np.load(path, allow_pickle=True).item()
+    if path.endswith(".pth"):
+        from tpu_tts_torch.utils.checkpoint import read_checkpoint
+
+        return read_checkpoint(path)
+    raise ValueError(f" [!] Unsupported file type {path}")
+
+
+class BaseIDManager:
+    """name ↔ id mapping from a stored file."""
+
+    def __init__(self, id_file_path: str = ""):
+        self.name_to_id: Dict[str, int] = {}
+        if id_file_path:
+            self.name_to_id = load_file(id_file_path)
+
+
+class EmbeddingManager(BaseIDManager):
+    """A store of d-vectors by clip and by speaker name."""
+
+    def __init__(self, embedding_file_path="", id_file_path: str = "", encoder_model_path: str = "",
+                 encoder_config_path: str = ""):
+        super().__init__(id_file_path)
+        self.embeddings: Dict[str, Dict] = {}
+        self.embeddings_by_name: Dict[str, List] = {}
+        if embedding_file_path:
+            if isinstance(embedding_file_path, list):
+                self.load_embeddings_from_list_of_files(embedding_file_path)
+            else:
+                self.load_embeddings_from_file(embedding_file_path)
+        if encoder_model_path and encoder_config_path:
+            self.init_encoder(encoder_model_path, encoder_config_path)
+
+    def _set_embeddings(self, embeddings: Dict):
+        self.embeddings = embeddings
+        speakers = sorted({x["name"] for x in self.embeddings.values()})
+        self.name_to_id = {name: i for i, name in enumerate(speakers)}
+        by_name: Dict[str, List] = {}
+        for x in self.embeddings.values():
+            by_name.setdefault(x["name"], []).append(x["embedding"])
+        self.embeddings_by_name = by_name
+
+    def load_embeddings_from_file(self, file_path: str):
+        self._set_embeddings(load_file(file_path))
+
+    def load_embeddings_from_list_of_files(self, file_paths: List[str]):
+        all_embeddings: Dict = {}
+        for path in file_paths:
+            all_embeddings.update(load_file(path))
+        self._set_embeddings(all_embeddings)
+
+    def get_embeddings_by_name(self, idx: str) -> List[List]:
+        return self.embeddings_by_name[idx]
+
+    def get_mean_embedding(self, idx: str, num_samples: Optional[int] = None) -> np.ndarray:
+        """The mean d-vector of speaker `idx`: over every clip with
+        `num_samples=None`, else over its first `num_samples` clips."""
+        embeddings = np.array(self.get_embeddings_by_name(idx))
+        if num_samples is None:
+            return embeddings.mean(0)
+        if len(embeddings) < num_samples:
+            raise ValueError(f" [!] {idx} has fewer embeddings than num_samples")
+        return embeddings[:num_samples].mean(0)
+
+    def init_encoder(self, model_path: str, config_path: str) -> None:
+        raise NotImplementedError("the speaker encoder is not ported yet (ROADMAP.md, M9)")
+
+    def compute_embedding_from_clip(self, wav_file) -> list:
+        raise NotImplementedError("d-vectors from a clip need the speaker encoder, not ported yet (ROADMAP.md, M9)")
+
+
+class SpeakerManager(EmbeddingManager):
+    def __init__(self, d_vectors_file_path="", speaker_id_file_path: str = "", encoder_model_path: str = "",
+                 encoder_config_path: str = ""):
+        super().__init__(
+            embedding_file_path=d_vectors_file_path,
+            id_file_path=speaker_id_file_path,
+            encoder_model_path=encoder_model_path,
+            encoder_config_path=encoder_config_path,
+        )
+
+    @property
+    def num_speakers(self):
+        return len(self.name_to_id)
+
+    @property
+    def speaker_names(self):
+        return list(self.name_to_id.keys())
+
+    @staticmethod
+    def init_from_config(config) -> Optional["SpeakerManager"]:
+        """From a model's args (or a config): the speakers file of a speaker
+        embedding table, or the d-vector file(s)."""
+        speaker_manager = None
+        if getattr(config, "use_speaker_embedding", False):
+            if getattr(config, "speaker_file", None):
+                speaker_manager = SpeakerManager(speaker_id_file_path=config.speaker_file)
+            if getattr(config, "speakers_file", None):
+                speaker_manager = SpeakerManager(speaker_id_file_path=config.speakers_file)
+        if getattr(config, "use_d_vector_file", False):
+            speaker_manager = SpeakerManager()
+            if getattr(config, "d_vector_file", None):
+                speaker_manager = SpeakerManager(d_vectors_file_path=config.d_vector_file)
+        return speaker_manager
+
+
+class LanguageManager(BaseIDManager):
+    def __init__(self, language_ids_file_path: str = "", config=None):
+        super().__init__(id_file_path=language_ids_file_path)
+        if config:
+            self.name_to_id = self.parse_language_ids_from_config(config)
+
+    @property
+    def num_languages(self):
+        return len(self.name_to_id)
+
+    @property
+    def language_names(self):
+        return list(self.name_to_id.keys())
+
+    @staticmethod
+    def parse_language_ids_from_config(c) -> Dict:
+        languages = set()
+        for dataset in c.datasets:
+            if dataset.language:
+                languages.add(dataset.language)
+            else:
+                raise ValueError(f" [!] Dataset {dataset.dataset_name} has no language specified.")
+        return {name: i for i, name in enumerate(sorted(languages))}
+
+    @staticmethod
+    def init_from_config(config) -> Optional["LanguageManager"]:
+        """From the full model config: the language flags may sit on
+        `model_args`, the dataset list at the top level."""
+        args = getattr(config, "model_args", None) or config
+        if getattr(args, "use_language_embedding", False):
+            if getattr(args, "language_ids_file", None):
+                return LanguageManager(language_ids_file_path=args.language_ids_file)
+            return LanguageManager(config=config if hasattr(config, "datasets") else None)
+        return None

@@ -14,15 +14,15 @@ from tpu_tts_torch.utils.checkpoint import load_net_checkpoint
 
 
 class BaseTTSModel:
-    def __init__(self, config, ap=None, tokenizer=None, device: Optional[str] = None):
+    def __init__(self, config, ap=None, tokenizer=None, device: Optional[str] = None, speaker_manager=None,
+                 language_manager=None):
         self.config = config
         self.ap = ap
         self.tokenizer = tokenizer
         self.device = resolve_device(device)
         self.net: torch.nn.Module = None
-        # multi-speaker and multi-language models come with M5c (ROADMAP.md)
-        self.speaker_manager = None
-        self.language_manager = None
+        self.speaker_manager = speaker_manager
+        self.language_manager = language_manager
 
     def load_checkpoint(self, config, checkpoint_path: str, eval: bool = True, strict: bool = True):
         """Load a `.pth` file into `self.net`: the port's `state_dict`, or a

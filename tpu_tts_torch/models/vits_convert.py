@@ -12,9 +12,14 @@ takes. It is the inverse of the JAX package's `convert_vits_torch_state_dict`
   with g per dim-0 slice. For a transposed conv dim 0 is the input channel
   and the kernel is flipped in time (flax's fractionally strided conv
   correlates with the reversed kernel);
-- the SDP's ElementwiseAffine `[C]` → `[C, 1]`.
+- the SDP's ElementwiseAffine `[C]` → `[C, 1]`;
+- embeddings (`emb_g`, `emb_l`, the text encoder's) → `.weight`.
 
-The posterior encoder belongs to training and is skipped.
+The speaker and language modules need no rule of their own: the
+embeddings, every `cond`/`cond_lang` Dense, the WN `cond_layer` and the
+decoder's `cond_layer` keep their flax names. ResBlock2's `convs_{j}` and the
+deterministic duration predictor's `conv_{n}/conv` are renamed below. The
+posterior encoder belongs to training and is skipped.
 """
 
 import re
@@ -37,6 +42,8 @@ _RULES = [
     (r"convs/norm([12])_(\d+)/", r"convs/norms_\1/\2/"),
     (r"^waveform_decoder/ups_(\d+)/", r"waveform_decoder/ups/\1/"),
     (r"^waveform_decoder/resblocks_(\d+)/convs([12])_(\d+)/", r"waveform_decoder/resblocks/\1/convs\2/\3/"),
+    (r"^waveform_decoder/resblocks_(\d+)/convs_(\d+)/", r"waveform_decoder/resblocks/\1/convs/\2/"),
+    (r"^duration_predictor/conv_([12])/conv/", r"duration_predictor/conv_\1/"),
 ]
 
 

@@ -8,11 +8,13 @@ POST), `create_server` and `main` with `--max_batch`,
 supports (VITS) is served through it, so concurrent `/api/tts` requests
 share one batched inference call; every other model and every request the
 batcher does not take run on the locked path, one synthesis at a time, as
-the reference server's global lock. `/api/tts_stream` and the XTTS pool
-come with XTTS (ROADMAP.md, M7).
+the reference server's global lock. The index page offers the model's
+speakers and languages to choose from, and `/details` lists them.
+`/api/tts_stream` and the XTTS pool come with XTTS (ROADMAP.md, M7).
 """
 
 import argparse
+import html
 import json
 import threading
 import traceback
@@ -34,14 +36,15 @@ _INDEX_HTML = """<!DOCTYPE html>
 <body>
 <h1>tpu-TTS server</h1>
 <textarea id="text" placeholder="Type a sentence..."></textarea><br/>
-<span id="speakers"></span>
+<!--CHOICES-->
 <button onclick="speak()">Speak</button>
 <p><audio id="audio" controls autoplay hidden></audio></p>
 <script>
 async function speak() {
   const text = document.getElementById('text').value;
-  const sid = document.getElementById('speaker_id') ? document.getElementById('speaker_id').value : '';
-  const r = await fetch('/api/tts?text=' + encodeURIComponent(text) + '&speaker_id=' + encodeURIComponent(sid));
+  const pick = (id) => document.getElementById(id) ? document.getElementById(id).value : '';
+  const r = await fetch('/api/tts?text=' + encodeURIComponent(text) + '&speaker_id=' +
+                        encodeURIComponent(pick('speaker_id')) + '&language_id=' + encodeURIComponent(pick('language_id')));
   const b = await r.blob();
   const a = document.getElementById('audio');
   a.src = URL.createObjectURL(b); a.hidden = false; a.play();
@@ -51,12 +54,28 @@ async function speak() {
 """
 
 
+def _choices(names, element_id: str, label: str) -> str:
+    if not names:
+        return ""
+    options = "".join(f'<option value="{html.escape(n)}">{html.escape(n)}</option>' for n in names)
+    return f'<label>{label} <select id="{element_id}">{options}</select></label><br/>'
+
+
+def index_html(synthesizer) -> str:
+    """The index page with a choice of the model's speakers and languages."""
+    speakers = synthesizer.speaker_manager.speaker_names if synthesizer.speaker_manager else []
+    languages = synthesizer.language_manager.language_names if synthesizer.language_manager else []
+    return _INDEX_HTML.replace("<!--CHOICES-->", _choices(speakers, "speaker_id", "Speaker")
+                               + _choices(languages, "language_id", "Language"))
+
+
 class TTSHandler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     timeout = 60
     synthesizer = None
     lock = threading.Lock()
     details = {}
+    index = _INDEX_HTML
     # the micro-batcher of a model it supports, else None (the locked path)
     _batcher = None
 
@@ -86,7 +105,7 @@ class TTSHandler(BaseHTTPRequestHandler):
         q = {k: v[0] for k, v in parse_qs(url.query).items()}
         try:
             if url.path in ("/", "/index.html"):
-                self._send(200, _INDEX_HTML, "text/html")
+                self._send(200, self.index, "text/html")
             elif url.path == "/details":
                 self._send(200, json.dumps(self.details, indent=2, default=str), "application/json")
             elif url.path == "/api/tts":
@@ -164,7 +183,10 @@ def create_server(args):
     TTSHandler.details = {
         "tts_config": synthesizer.tts_config.to_dict() if synthesizer.tts_config else {},
         "vocoder_config": synthesizer.vocoder_config.to_dict() if synthesizer.vocoder_config else None,
+        "speakers": synthesizer.speaker_manager.speaker_names if synthesizer.speaker_manager else [],
+        "languages": synthesizer.language_manager.language_names if synthesizer.language_manager else [],
     }
+    TTSHandler.index = index_html(synthesizer)
     return ThreadingHTTPServer((args.host, args.port), TTSHandler)
 
 

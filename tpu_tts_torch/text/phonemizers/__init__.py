@@ -3,9 +3,12 @@
 Counterpart of `tpu_tts/text/phonemizers/__init__.py` (Coqui TTS
 `TTS/tts/utils/text/phonemizers/__init__.py`) with its built-in `en_rules`
 English G2P. ESpeak and Gruut gate themselves: they raise at construction
-where the espeak binary or the `gruut` package is missing. The ja/ko/zh/bn/be
-phonemizers are registered by name as gated placeholders that raise when
-built (ROADMAP.md lists them as still to port).
+where the espeak binary or the `gruut` package is missing. As in JAX, the
+Japanese (kana rules; MeCab for kanji when installed), Korean (jamo; g2pkk
+when installed) and Bangla phonemizers run natively; the Mandarin one raises
+at construction without `pypinyin`, and the Belarusian one raises when it
+phonemizes without `belarusian_fanetyka`. A backend whose module fails to
+import is registered as a placeholder that raises when built.
 """
 
 from typing import Dict
@@ -16,12 +19,12 @@ from tpu_tts_torch.text.phonemizers.espeak_wrapper import ESpeak
 from tpu_tts_torch.text.phonemizers.gruut_wrapper import GRUUT_LANGS, Gruut
 
 
-def _gated(name: str, needs: str):
-    """A placeholder phonemizer class for a backend the port does not run."""
+def _gated(name: str, package: str):
+    """A placeholder phonemizer class for a backend that cannot be imported."""
 
     class _Gated(BasePhonemizer):
         def __init__(self, *args, **kwargs):  # pylint: disable=super-init-not-called
-            raise RuntimeError(f" [!] Phonemizer `{name}` ({needs}) is not ported yet (ROADMAP.md, M5b).")
+            raise RuntimeError(f" [!] Phonemizer `{name}` requires the `{package}` package which is not installed.")
 
         @staticmethod
         def name():
@@ -46,11 +49,26 @@ def _gated(name: str, needs: str):
     return _Gated
 
 
-ZH_CN_Phonemizer = _gated("zh_cn_phonemizer", "pypinyin")
-KO_KR_Phonemizer = _gated("ko_kr_phonemizer", "jamo, g2pkk")
-JA_JP_Phonemizer = _gated("ja_jp_phonemizer", "kana rules, MeCab")
-BN_Phonemizer = _gated("bn_phonemizer", "bangla normaliser")
-BEL_Phonemizer = _gated("be_phonemizer", "belarusian text normaliser")
+try:
+    from tpu_tts_torch.text.phonemizers.zh_cn_phonemizer import ZH_CN_Phonemizer
+except ImportError:
+    ZH_CN_Phonemizer = _gated("zh_cn_phonemizer", "pypinyin")
+try:
+    from tpu_tts_torch.text.phonemizers.ko_kr_phonemizer import KO_KR_Phonemizer
+except ImportError:
+    KO_KR_Phonemizer = _gated("ko_kr_phonemizer", "g2pkk/jamo")
+try:
+    from tpu_tts_torch.text.phonemizers.ja_jp_phonemizer import JA_JP_Phonemizer
+except ImportError:
+    JA_JP_Phonemizer = _gated("ja_jp_phonemizer", "mecab/cutlet")
+try:
+    from tpu_tts_torch.text.phonemizers.bn_phonemizer import BN_Phonemizer
+except ImportError:
+    BN_Phonemizer = _gated("bn_phonemizer", "bangla")
+try:
+    from tpu_tts_torch.text.phonemizers.be_phonemizer import BEL_Phonemizer
+except ImportError:
+    BEL_Phonemizer = _gated("be_phonemizer", "belarusian text normalizer")
 
 
 PHONEMIZERS = {
@@ -86,7 +104,7 @@ def get_phonemizer_by_name(name: str, **kwargs) -> BasePhonemizer:
     if name == "en_rules":
         return EnglishRules(**kwargs)
     if name in PHONEMIZERS:
-        kwargs.pop("language", None)
+        kwargs.pop("language", None)  # each of the others serves one language
         return PHONEMIZERS[name](**kwargs)
     raise ValueError(f"Phonemizer {name} not found")
 

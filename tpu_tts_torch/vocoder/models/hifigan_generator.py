@@ -1,10 +1,15 @@
-"""HiFi-GAN generator, channels-first, with every MRF stage on the CUDA kernel.
+"""HiFi-GAN generator, channels-first, with every ResBlock1 MRF stage on the CUDA kernel.
 
 Counterpart of `tpu_tts/vocoder/models/hifigan_generator.py`
-(`WNConvTranspose1d`:26, `ResBlock1`:57, `HifiganGenerator`:93). Each stage's
-MRF stack goes through `ops.hifigan_mrf.mrf_stack`, at every width. As in
-the flax generator, the final leaky relu has slope 0.01; the port's
-generator runs in float32 throughout (the kernel also takes bfloat16).
+(`WNConvTranspose1d`:26, `ResBlock1`:57, `ResBlock2`:76, `HifiganGenerator`
+:93). With ResBlock1 each stage's MRF stack goes through
+`ops.hifigan_mrf.mrf_stack`, at every width. ResBlock2 (YourTTS's decoder)
+runs in plain PyTorch, as `tpu_tts` runs it in plain XLA and never sends it
+to its Pallas kernel. With `cond_channels`, a 1×1 projection of the speaker
+embedding g `[B, C_g, 1]` is added after `conv_pre`, outside the kernel, as
+in `tpu_tts/ops/hifigan_pallas.py::hifigan_apply_pallas`. As in the flax
+generator, the final leaky relu has slope 0.01; the port's generator runs
+in float32 throughout (the kernel also takes bfloat16).
 """
 
 from typing import Dict, Sequence, Tuple
@@ -52,6 +57,21 @@ class ResBlock1(nn.Module):
         ]
 
 
+class ResBlock2(nn.Module):
+    """One dilated conv per dilation, each `lrelu → conv` with a residual,
+    in plain PyTorch. As the flax ResBlock2, it has a conv for every
+    dilation given."""
+
+    def __init__(self, channels: int, kernel_size: int = 3, dilation: Tuple[int, ...] = (1, 3)):
+        super().__init__()
+        self.convs = nn.ModuleList(WNConv1d(channels, channels, kernel_size, dilation=d) for d in dilation)
+
+    def forward(self, x):
+        for conv in self.convs:
+            x = conv(F.leaky_relu(x, LRELU_SLOPE)) + x
+        return x
+
+
 class HifiganGenerator(nn.Module):
     """latent `[B, C_in, T]` → waveform `[B, 1, T·prod(upsample_factors)]`."""
 
@@ -69,13 +89,16 @@ class HifiganGenerator(nn.Module):
         cond_in_each_up_layer: bool = False,
     ):
         super().__init__()
-        if str(resblock_type) != "1":
-            raise NotImplementedError("ResBlock2 is not ported yet (ROADMAP.md, queue 1)")
-        if cond_channels or cond_in_each_up_layer:
-            raise NotImplementedError("speaker conditioning of the decoder is not ported yet (ROADMAP.md, queue 1)")
+        if cond_in_each_up_layer:
+            raise NotImplementedError("the XTTS decoder's conditioning after each upsample (`conds_{i}`) comes "
+                                      "with XTTS (ROADMAP.md, M7)")
+        self.resblock_type = str(resblock_type)
+        resblock_cls = ResBlock1 if self.resblock_type == "1" else ResBlock2
         self.num_kernels = len(resblock_kernel_sizes)
         self.num_upsamples = len(upsample_factors)
         self.conv_pre = WNConv1d(in_channels, upsample_initial_channel, 7)
+        if cond_channels:
+            self.cond_layer = nn.Conv1d(cond_channels, upsample_initial_channel, 1)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
         for i, (u, k) in enumerate(zip(upsample_factors, upsample_kernel_sizes)):
@@ -83,7 +106,7 @@ class HifiganGenerator(nn.Module):
             ch = upsample_initial_channel // (2 ** (i + 1))
             self.ups.append(WNConvTranspose1d(ch_in, ch, k, u))
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
-                self.resblocks.append(ResBlock1(ch, rk, tuple(rd)))
+                self.resblocks.append(resblock_cls(ch, rk, tuple(rd)))
         self.conv_post = WNConv1d(ch, out_channels, 7)
         self._packed: Dict[int, Tuple[tuple, MrfStage]] = {}
 
@@ -100,10 +123,18 @@ class HifiganGenerator(nn.Module):
             self._packed[i] = hit
         return hit[1]
 
-    def forward(self, x):
+    def forward(self, x, g=None):
+        """x `[B, C_in, T]`; g `[B, C_g, 1]`, read when the generator has a
+        `cond_layer`."""
         o = self.conv_pre(x)
+        if g is not None and hasattr(self, "cond_layer"):
+            o = o + self.cond_layer(g)
         for i in range(self.num_upsamples):
             o = self.ups[i](F.leaky_relu(o, LRELU_SLOPE))
-            o = mrf_stack(o, self.mrf_stage(i))
+            if self.resblock_type == "1":
+                o = mrf_stack(o, self.mrf_stage(i))
+            else:
+                blocks = self.resblocks[i * self.num_kernels : (i + 1) * self.num_kernels]
+                o = sum(rb(o) for rb in blocks) / self.num_kernels
         # slope 0.01 here, as in the flax generator (torch's default)
         return torch.tanh(self.conv_post(F.leaky_relu(o, 0.01)))
