@@ -64,7 +64,23 @@ result line:
    giving different waveforms; a profile of the batched call; then one
    request to a YourTTS-shaped VITS (512-wide d-vectors from a file,
    ResBlock2, 10 text-encoder layers), which launches K1 no time;
-11. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
+11. XTTS-v2 at full width (GPT 30 × 1024, 16 heads, KV cache 1100, the
+   perceiver's 32 latents, the HiFi-GAN decoder with `conds` through K1),
+   weights from seed 0, saved as a model directory (`config.json`, a
+   Coqui-key checkpoint, `speakers_xtts.pth` of two speakers) and served
+   with `--max_streams 8`, token ids from a character table (no vocab
+   ships): one `/api/tts_stream` request (128 tokens, chunk 20, first chunk
+   8), checked for HTTP 200, chunked PCM16, sound, the length its tokens
+   give and 72 K1 launches a chunk (`xtts stream single`: first-chunk ms,
+   chunk cadence, audio s); 8 concurrent streams, 4 at once and 4 once the
+   first audio is out, which must share rounds and be admitted mid-round
+   (`xtts stream concurrent`: audio s per wall s, first-chunk p50 and max);
+   on the card the decoder through K1 against the plain MRF at B = 1 and 8,
+   the incremental GPT against teacher-forced, and greedy pooled streams
+   replayed teacher-forced (`xtts card checks`); one `/api/tts` request
+   with `speaker_wav`; profiles of a stream's chunk and a pool emission and
+   the GPT's ms per step at B = 1 and 8 (`profile` lines);
+12. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
 
 Each serving phase's requests are a main path: the launch counts are set to
 0 just before them and read just after. Phases 5 and 6 take the locked
@@ -406,25 +422,14 @@ def check_wavernn_kernel() -> list:
     return rows
 
 
-def save_model(tmp: str, device: str = "cuda", config=None, coqui: bool = False):
-    """A full-width VITS (the default `VitsConfig` unless `config` is given)
-    with seeded random weights → (checkpoint, config.json). The checkpoint is
-    the net's state_dict, or with `coqui` a Coqui-format training checkpoint:
-    `{"model": ..., "step": ...}` holding a discriminator tensor the
-    inference net has no place for."""
+def unit_gain_decoder(dec):
+    """Redraw a random HiFi-GAN generator's convs with unit gain (transposed
+    convs over the C_in·k/stride taps that reach an output, resblock convs at
+    half that), so that it neither saturates its tanh nor fades to silence."""
     import torch
 
-    from tpu_tts_torch.configs.vits_config import VitsConfig
     from tpu_tts_torch.layers.common import WeightNorm
-    from tpu_tts_torch.models.vits import Vits
 
-    torch.manual_seed(SEED)
-    config = VitsConfig() if config is None else config
-    model = Vits.init_from_config(config, device=device)
-    # the decoder's convs are redrawn with unit gain (transposed convs over the
-    # C_in·k/stride taps that reach an output, resblock convs at half that),
-    # so the random decoder neither saturates its tanh nor fades to silence
-    dec = model.net.waveform_decoder
     with torch.no_grad():
         for up in dec.ups:
             wn = up.parametrizations["weight"]
@@ -436,6 +441,23 @@ def save_model(tmp: str, device: str = "cuda", config=None, coqui: bool = False)
                 _, c_in, k = wn.original1.shape
                 wn.original1.normal_(0.0, 0.5 * (c_in * k) ** -0.5)
                 wn.original0.copy_(wn._norm(wn.original1))
+
+
+def save_model(tmp: str, device: str = "cuda", config=None, coqui: bool = False):
+    """A full-width VITS (the default `VitsConfig` unless `config` is given)
+    with seeded random weights → (checkpoint, config.json). The checkpoint is
+    the net's state_dict, or with `coqui` a Coqui-format training checkpoint:
+    `{"model": ..., "step": ...}` holding a discriminator tensor the
+    inference net has no place for."""
+    import torch
+
+    from tpu_tts_torch.configs.vits_config import VitsConfig
+    from tpu_tts_torch.models.vits import Vits
+
+    torch.manual_seed(SEED)
+    config = VitsConfig() if config is None else config
+    model = Vits.init_from_config(config, device=device)
+    unit_gain_decoder(model.net.waveform_decoder)
     model_path, config_path = os.path.join(tmp, "model.pth"), os.path.join(tmp, "config.json")
     if coqui:
         sd = {**model.net.state_dict(), "disc.nets.0.conv_post.bias": torch.zeros(1, device=device)}
@@ -1007,6 +1029,401 @@ def glow_griffin_lim(paths: dict, device: str = "cuda") -> dict:
     return row
 
 
+# the XTTS phase: one stream, then 8 concurrent ones (4 at once, 4 during the round), chunk 20, first chunk 8
+XTTS_STREAM = dict(max_new_tokens=128, stream_chunk_size=20, first_chunk_size=8, overlap_latents=4)
+XTTS_SPEAKERS = ("Ana Florence", "Claribel Dervla")
+XTTS_TEXTS = [
+    "It took me quite a long time to develop a voice.",
+    "The birch canoe slid on the smooth planks.",
+    "Glue the sheet to the dark blue background.",
+    "It is easy to tell the depth of a well.",
+    "These days a chicken leg is a rare dish.",
+    "Rice is often served in round bowls.",
+    "The juice of lemons makes fine punch.",
+    "The box was thrown beside the parked truck.",
+    "Four hours of steady work faced us.",
+]
+# no XTTS vocab ships with the repository: token ids come from this character table
+XTTS_CHARS = " abcdefghijklmnopqrstuvwxyz0123456789.,;:!?'-"
+XTTS_TOL = 1e-3  # the decoder against its plain MRF, and the incremental GPT against teacher-forced
+
+
+def xtts_token_ids(text: str, lang: str = "en") -> list:
+    return [XTTS_CHARS.index(c) + 1 for c in text.lower() if c in XTTS_CHARS]
+
+
+def save_xtts(tmp: str, device: str = "cuda", config=None) -> dict:
+    """A full-width XTTS-v2 (default `XttsArgs`: GPT 30 × 1024, 16 heads,
+    perceiver of 32 latents, HiFi-GAN 512 → 32 with `conds`) with weights
+    from seed 0 on the card, saved as a model directory: `config.json`, a
+    Coqui-key checkpoint `{"model": ...}` and a `speakers_xtts.pth` of two
+    speakers whose latents the model computes from seeded 3 s wavs; plus a
+    cloning wav for `speaker_wav`. The decoder is redrawn with unit gain
+    (`unit_gain_decoder`), and the stop code's head bias is set to -1e4, so
+    a random model runs every stream to its token budget."""
+    import numpy as np
+    import scipy.io.wavfile
+    import torch
+
+    from tpu_tts_torch.configs.xtts_config import XttsConfig
+    from tpu_tts_torch.models.xtts import Xtts
+
+    t0 = time.perf_counter()
+    torch.manual_seed(SEED)
+    config = XttsConfig() if config is None else config
+    model = Xtts(config, device=device)
+    unit_gain_decoder(model.net.hifigan_decoder["waveform_decoder"])
+    with torch.no_grad():
+        model.net.gpt.mel_head.bias[model.args.gpt_stop_audio_token] = -1e4
+    rng = np.random.default_rng(SEED)
+    speakers = {}
+    for name in XTTS_SPEAKERS:
+        cond, spk = model.get_conditioning_latents((0.3 * rng.standard_normal(3 * 22050)).astype(np.float32))
+        speakers[name] = {"gpt_cond_latent": cond[0].cpu(), "speaker_embedding": spk[0].cpu()}
+    torch.save(speakers, os.path.join(tmp, "speakers_xtts.pth"))
+    torch.save({"model": {k: v.cpu() for k, v in model.net.state_dict().items()}}, os.path.join(tmp, "model.pth"))
+    config.save_json(os.path.join(tmp, "config.json"))
+    wav_path = os.path.join(tmp, "speaker.wav")
+    scipy.io.wavfile.write(wav_path, 22050, (0.3 * rng.standard_normal(3 * 22050) * 32767 / 4).astype(np.int16))
+    n_params = sum(p.numel() for p in model.net.parameters())
+    del model
+    torch.cuda.empty_cache()
+    log(f"xtts model directory: {n_params} parameters, built and saved in {time.perf_counter() - t0:.1f} s")
+    return {"model_dir": tmp, "speaker_wav": wav_path}
+
+
+def xtts_decoded_samples(model, n_latents: int) -> int:
+    """Samples `decode_latents` gives for n latents (the two floors of the
+    interpolations, then the decoder's upsampling)."""
+    import math
+
+    import numpy as np
+
+    a = model.args
+    frames = math.floor(n_latents * (a.gpt_code_stride / a.output_hop_length))
+    if a.output_sample_rate != a.input_sample_rate:
+        frames = math.floor(frames * (a.output_sample_rate / a.input_sample_rate))
+    return frames * int(np.prod(a.decoder_upsample_rates))
+
+
+def xtts_emissions(model, n_tokens: int, first: int, chunk: int, ovl: int) -> list:
+    """The samples of each chunk a stream of n tokens emits: first `first`
+    tokens, then `chunk` at a time with `ovl` latents of context, each
+    `_n_samples(n)` long unless its decoded window is shorter."""
+    out, done, is_first = [], 0, True
+    while done < n_tokens:
+        size = first if is_first else chunk
+        n, ctx = min(size, n_tokens - done), 0 if is_first else ovl
+        out.append(min(model._n_samples(n), xtts_decoded_samples(model, ctx + size) - model._n_samples(ctx)))
+        done, is_first = done + n, False
+    return out
+
+
+def stream_request(base: str, query: str, first_bytes=None) -> dict:
+    """One `/api/tts_stream` request read chunk by chunk: status, whether the
+    reply is chunked, the PCM16 samples, the seconds to the first bytes and
+    to the last, from the request's start; sets `first_bytes` on the first."""
+    import http.client
+
+    import numpy as np
+
+    host, port = base.rsplit("//", 1)[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    t0 = time.perf_counter()
+    try:
+        conn.request("GET", f"/api/tts_stream?{query}")
+        resp = conn.getresponse()
+        data, t_first = bytearray(), None
+        while True:
+            piece = resp.read1(1 << 20)
+            if not piece:
+                break
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+                if first_bytes is not None:
+                    first_bytes.set()
+            data += piece
+        return {"status": resp.status, "chunked": resp.getheader("Transfer-Encoding") == "chunked",
+                "rate": resp.getheader("X-Sample-Rate"), "pcm": np.frombuffer(bytes(data), dtype="<i2"),
+                "first_s": t_first, "wall_s": time.perf_counter() - t0, "t0": t0}
+    finally:
+        conn.close()
+
+
+def check_stream_reply(model, reply: dict, codes: list, label: str) -> list:
+    """HTTP 200, chunked PCM16 at the model's rate, not silent, the length
+    the stream's own token count gives; returns its emissions."""
+    plan = xtts_emissions(model, len(codes), XTTS_STREAM["first_chunk_size"], XTTS_STREAM["stream_chunk_size"],
+                          XTTS_STREAM["overlap_latents"])
+    pcm = reply["pcm"]
+    if reply["status"] != 200 or not reply["chunked"] or reply["rate"] != str(model.args.output_sample_rate):
+        raise AssertionError(f"{label}: status {reply['status']}, chunked {reply['chunked']}, rate {reply['rate']}")
+    if pcm.size != sum(plan) or not pcm.size or int(abs(pcm.astype("int32")).max()) == 0:
+        raise AssertionError(f"{label}: {pcm.size} samples for {len(codes)} tokens ({sum(plan)} expected), or silent")
+    return plan
+
+
+def xtts_serve(paths: dict, device: str = "cuda") -> dict:
+    """The XTTS phase: the model directory served by the port's server
+    (`--max_streams 8`); one `/api/tts_stream` request with a bundled
+    speaker, then 8 concurrent ones; the card checks of `xtts_card_checks`;
+    one `/api/tts` request with `speaker_wav`; profiles. The stream route's
+    pool is set on the handler here, at the server's `--max_streams` and
+    `XTTS_STREAM`'s 128-token budget (the server's own `_get_pool` would
+    build it at the 256-token default), so `_get_pool` itself does not run
+    on the card. The launches per chunk and per pool emission are
+    measured: K1's count over a stream's chunks and over the concurrent
+    streams' decode calls."""
+    import numpy as np
+
+    from tpu_tts_torch.infer.xtts_pool import XttsStreamPool
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.server.server import TTSHandler, create_server
+
+    t0 = time.perf_counter()
+    server = create_server(argparse.Namespace(model_dir=paths["model_dir"], device=device, host="127.0.0.1", port=0,
+                                              max_streams=8))
+    log(f"xtts server: model directory loaded in {time.perf_counter() - t0:.1f} s")
+    synth = TTSHandler.synthesizer
+    model = synth.tts_model
+    model.bpe.encode = xtts_token_ids
+    pool = XttsStreamPool(model, max_streams=TTSHandler.pool_max_streams, **XTTS_STREAM)
+    TTSHandler._pool = pool
+    streams, submit = {}, pool.submit
+
+    def recording_submit(**kwargs):  # each stream's codes, by its text
+        stream = submit(**kwargs)
+        streams[kwargs["text"]] = stream
+        return stream
+
+    pool.submit = recording_submit
+    dec = model.net.hifigan_decoder["waveform_decoder"]
+    per_call = sum(hifigan_mrf.launches_per_stage(dec.mrf_stage(i)) for i in range(dec.num_upsamples))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def query(text, speaker=XTTS_SPEAKERS[0]):
+        return f"text={urllib.parse.quote(text)}&speaker_id={urllib.parse.quote(speaker)}"
+
+    try:
+        cond, spk = model.speaker_latents(XTTS_SPEAKERS[0])  # a warm-up of both chunk sizes, not counted
+        for _ in pool.submit(text="Warm up.", gpt_cond_latent=cond, speaker_embedding=spk, max_tokens=28):
+            pass
+        # ---- one stream
+        calls0 = pool.decode_calls
+        hifigan_mrf.launches = 0
+        reply = stream_request(base, query(XTTS_TEXTS[0]))
+        launches = hifigan_mrf.launches
+        plan = check_stream_reply(model, reply, streams[XTTS_TEXTS[0]].codes, "single stream")
+        calls = pool.decode_calls - calls0
+        if calls != len(plan) or launches != per_call * len(plan):
+            raise AssertionError(f"single stream: {len(plan)} chunks, {calls} decodes, {launches} K1 launches")
+        sr = model.args.output_sample_rate
+        cadence = (reply["wall_s"] - reply["first_s"]) / max(len(plan) - 1, 1)
+        single = {"tokens": len(streams[XTTS_TEXTS[0]].codes), "chunks": len(plan), "samples": int(reply["pcm"].size),
+                  "audio_s": reply["pcm"].size / sr, "first_chunk_ms": reply["first_s"] * 1e3,
+                  "mean_chunk_cadence_ms": cadence * 1e3, "wall_s": reply["wall_s"],
+                  "hifigan_mrf_launches": launches, "launches_per_chunk": launches // len(plan)}
+        log("xtts stream single " + json.dumps(single))
+
+        # ---- 8 concurrent streams: 4 at once, 4 once the first audio is out
+        texts = XTTS_TEXTS[1:9]
+        replies, errors, first_bytes = {}, [], threading.Event()
+
+        def go(i):
+            try:
+                speaker = XTTS_SPEAKERS[i % 2]
+                replies[texts[i]] = stream_request(base, query(texts[i], speaker), first_bytes if i == 0 else None)
+            except Exception as e:  # raised below, in the main thread
+                errors.append(e)
+                first_bytes.set()
+
+        r0, a0, calls0 = pool.rounds_served, pool.admissions, pool.decode_calls
+        hifigan_mrf.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(8)]
+        for t in threads[:4]:
+            t.start()
+        first_bytes.wait(timeout=600)
+        for t in threads[4:]:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        launches_8 = hifigan_mrf.launches
+        rounds, admissions, calls = pool.rounds_served - r0, pool.admissions - a0, pool.decode_calls - calls0
+        samples = 0
+        for text in texts:
+            check_stream_reply(model, replies[text], streams[text].codes, f"concurrent {text!r}")
+            samples += replies[text]["pcm"].size
+        firsts = sorted(replies[t]["first_s"] * 1e3 for t in texts)
+        concurrent = {"requests": 8, "rounds_served": rounds, "admissions": admissions, "wall_s": wall,
+                      "audio_s": samples / sr, "audio_s_per_wall_s": samples / sr / wall,
+                      "first_chunk_ms_p50": float(np.percentile(firsts, 50)), "first_chunk_ms_max": firsts[-1],
+                      "decode_calls": calls, "hifigan_mrf_launches": launches_8}
+        log("xtts stream concurrent " + json.dumps(concurrent))
+        if rounds >= 8 or admissions < 1 or launches_8 != per_call * calls:
+            raise AssertionError(f"8 concurrent streams did not share rounds, or K1 missed decodes: {concurrent}")
+
+        checks = xtts_card_checks(model, streams[XTTS_TEXTS[0]].codes)
+        api = xtts_api_tts(base, synth, paths["speaker_wav"], per_call)
+        xtts_profile(model)
+        return {"single": single, "concurrent": concurrent, "checks": checks, "api_tts": api,
+                "launches": launches + launches_8, "launches_per_chunk": single["launches_per_chunk"],
+                "launches_per_emission": launches_8 // calls}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        pool.close()
+        TTSHandler._pool = None
+
+
+def xtts_card_checks(model, codes: list) -> dict:
+    """On the card: the decoder through K1 against the plain MRF on one
+    chunk's latents (4 + 20) at B = 1 and B = 8; the incremental decode of a
+    stream's codes against the teacher-forced GPT; greedy pooled streams
+    replayed teacher-forced, each code within 1e-4 of its step's best logit."""
+    import torch
+
+    from tpu_tts_torch.infer.xtts_pool import XttsStreamPool
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.vocoder.models import hifigan_generator
+
+    net, a, dev = model.net, model.args, model.device
+    conds = [model.speaker_latents(XTTS_SPEAKERS[i % 2]) for i in range(8)]
+    cond, spk = torch.cat([c for c, _ in conds]), torch.cat([s for _, s in conds])
+    ids = [torch.tensor(xtts_token_ids(t), device=dev) for t in XTTS_TEXTS[1:9]]
+    text = torch.nn.utils.rnn.pad_sequence(ids, batch_first=True)
+    text, _ = model._bucket_text(text)
+    lengths = torch.tensor([len(i) for i in ids], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    _, lats, _ = net.generate_latents(cond, text, gen, 24, 0.75, 50, lengths)
+    out = {}
+    for B in (1, 8):
+        got = net.decode_latents(lats[:B], spk[:B])
+        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
+        try:
+            ref = net.decode_latents(lats[:B], spk[:B])
+        finally:
+            hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
+        out[f"decoder_b{B}_max_abs_err"] = float((got - ref).abs().max())
+        out[f"decoder_b{B}_rms"] = float(ref.pow(2).mean().sqrt())
+
+    # incremental vs teacher-forced, 32 codes of the single stream
+    c0, s0 = model.speaker_latents(XTTS_SPEAKERS[0])
+    t0 = torch.tensor(xtts_token_ids(XTTS_TEXTS[0]), device=dev)[None]
+    seq = torch.tensor(codes[:32], device=dev)[None]
+    prev = torch.cat([torch.full((1, 1), a.gpt_start_audio_token, device=dev), seq[:, :-1]], 1)
+    with torch.no_grad():
+        tf = net.gpt(c0, t0, prev)
+        cache, plen, _ = net.stream_prefill(c0, t0)
+        logits, latents = [], []
+        for t in range(prev.shape[1]):
+            lg, lt, cache = net.gpt.decode_step(prev[:, t], t, cache, plen + t)
+            logits.append(lg)
+            latents.append(lt)
+    out["incremental_logits_max_abs_err"] = float((torch.stack(logits, 1) - tf["mel_logits"]).abs().max())
+    out["incremental_latents_max_abs_err"] = float((torch.stack(latents, 1) - tf["audio_latents"]).abs().max())
+
+    # greedy pooled streams, 4 at once and 4 admitted, replayed teacher-forced
+    pool = XttsStreamPool(model, max_streams=8, stream_chunk_size=20, first_chunk_size=8, max_new_tokens=48, top_k=1,
+                          gather_window_s=0.05)
+    try:
+        streams = [pool.submit(text_tokens=ids[i], gpt_cond_latent=conds[i][0], speaker_embedding=conds[i][1])
+                   for i in range(4)]
+        first = next(streams[0])
+        streams += [pool.submit(text_tokens=ids[i], gpt_cond_latent=conds[i][0], speaker_embedding=conds[i][1])
+                    for i in range(4, 8)]
+        n_chunks = [1 + len(list(streams[0]))] + [len(list(st)) for st in streams[1:]]
+        del first
+    finally:
+        pool.close()
+    gaps = []
+    for i, st in enumerate(streams):
+        seq = torch.tensor(st.codes, device=dev)[None]
+        prev = torch.cat([torch.full((1, 1), a.gpt_start_audio_token, device=dev), seq[:, :-1]], 1)
+        with torch.no_grad():
+            lg = net.gpt(conds[i][0], ids[i][None], prev)["mel_logits"][0]
+        gaps.append(float((lg.max(dim=-1).values - lg.gather(1, seq[0][:, None])[:, 0]).max()))
+    out.update(greedy_streams=len(streams), greedy_tokens=[len(st.codes) for st in streams], greedy_chunks=n_chunks,
+               greedy_rounds=pool.rounds_served, greedy_admissions=pool.admissions,
+               greedy_max_score_gap=max(gaps), tol=XTTS_TOL, score_tol=K2_TOL)
+    log("xtts card checks " + json.dumps(out))
+    bad = [k for k in ("decoder_b1_max_abs_err", "decoder_b8_max_abs_err", "incremental_logits_max_abs_err",
+                       "incremental_latents_max_abs_err") if not out[k] <= XTTS_TOL]
+    if bad or not out["greedy_max_score_gap"] <= K2_TOL or min(out["greedy_tokens"]) < 1 \
+            or min(out["decoder_b1_rms"], out["decoder_b8_rms"]) < 100 * XTTS_TOL:
+        raise AssertionError(f"XTTS card checks failed ({bad}): {out}")
+    return out
+
+
+def xtts_api_tts(base: str, synth, speaker_wav: str, per_call: int) -> dict:
+    """One `/api/tts` request with `speaker_wav`: `Synthesizer.tts` →
+    `Xtts.synthesize` → `inference` (256 tokens), a WAV at 24 kHz of the
+    decoded length plus the sentence gap, through K1 once (`per_call`
+    launches, 72 at full width)."""
+    import numpy as np
+    import scipy.io.wavfile
+
+    from tpu_tts_torch.infer.synthesizer import SENTENCE_GAP
+    from tpu_tts_torch.ops import hifigan_mrf
+
+    model = synth.tts_model
+    hifigan_mrf.launches = 0
+    t0 = time.perf_counter()
+    url = f"{base}/api/tts?text={urllib.parse.quote(XTTS_TEXTS[0])}&speaker_wav={urllib.parse.quote(speaker_wav)}"
+    try:
+        with urllib.request.urlopen(url, timeout=600) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        raise AssertionError(f"/api/tts gave HTTP {e.code}: {e.read()[:2000]!r}") from None
+    wall = time.perf_counter() - t0
+    sr, pcm = scipy.io.wavfile.read(io.BytesIO(body))
+    expected = min(model._n_samples(256), xtts_decoded_samples(model, 256)) + SENTENCE_GAP
+    row = {"status": status, "sample_rate": sr, "samples": int(pcm.size), "expected": expected, "wall_s": wall,
+           "hifigan_mrf_launches": hifigan_mrf.launches}
+    log("xtts api_tts speaker_wav " + json.dumps(row))
+    if status != 200 or sr != 24000 or pcm.size != expected or np.abs(pcm).max() == 0 \
+            or row["hifigan_mrf_launches"] != per_call:
+        raise AssertionError(f"/api/tts with speaker_wav: {row}")
+    return row
+
+
+def xtts_profile(model) -> dict:
+    """torch.profiler over one chunk of a single stream (20 GPT steps at B = 1
+    and the decode of 4 + 20 latents) and one pool emission (the same at
+    B = 8); the GPT's ms per decode step at B = 1 and B = 8 (CUDA events
+    around 20 steps, Python's launches included)."""
+    import torch
+
+    net, dev = model.net, model.device
+    out = {}
+    for B in (1, 8):
+        conds = [model.speaker_latents(XTTS_SPEAKERS[i % 2]) for i in range(B)]
+        cond, spk = torch.cat([c for c, _ in conds]), torch.cat([s for _, s in conds])
+        text, lengths = model._bucket_text(torch.tensor([xtts_token_ids(XTTS_TEXTS[0])] * B, device=dev))
+        cache, plen, code = net.stream_prefill(cond, text, lengths)
+        stopped = torch.zeros(B, dtype=torch.bool, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+
+        def chunk(cache=cache, plen=plen, code=code, stopped=stopped, gen=gen, lengths=lengths, width=cond.shape[1]):
+            return net.stream_chunk(cache, plen, code, stopped, gen, 8, 20, 0.75, 50, lengths, width)
+
+        lats = chunk()[1][1]
+        x = torch.cat([lats[:, -4:], lats], 1)
+        label = "single stream chunk" if B == 1 else "pool emission"
+        profile_call(lambda: (chunk(), net.decode_latents(x, spk)),
+                     {"model": "xtts", "call": f"{label}: 20 GPT steps + decode of 24 latents", "rows": B})
+        out[f"gpt_ms_per_step_b{B}"] = cuda_ms(chunk, 3) / 20
+        out[f"decode_ms_b{B}"] = cuda_ms(lambda: net.decode_latents(x, spk), 3)
+    log("profile xtts " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1056,6 +1473,11 @@ def main() -> int:
         rows_alone = check_rows_alone(multi.pop("model"), multi["served"])
     with tempfile.TemporaryDirectory() as tmp:
         yourtts = serve_yourtts(save_yourtts(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        xtts = xtts_serve(save_xtts(tmp))
+        if xtts["launches_per_chunk"] != 72 or xtts["launches_per_emission"] != 72:
+            raise AssertionError(f"the XTTS decoder took {xtts['launches_per_chunk']} K1 launches a chunk and "
+                                 f"{xtts['launches_per_emission']} a pool emission, not 72")
 
     f32 = [r for r in rows if r["dtype"] == "float32"]
     served = next(r for r in k2_rows if r["mode"] == "sampled")  # the mode the vocoder serves
@@ -1082,6 +1504,11 @@ def main() -> int:
         "launches_per_multispeaker_batch": multi["launches_per_batch"],
         "multispeaker_rows_alone_max_abs_err": rows_alone["max_abs_err"],
         "yourtts_launches": yourtts["hifigan_mrf_launches"],
+        # the XTTS phase's streams (1 alone, then 8 concurrent): 72 a decoded chunk or pool emission
+        "xtts_launches": xtts["launches"],
+        "xtts_launches_per_chunk": xtts["launches_per_chunk"],
+        "xtts_launches_per_emission": xtts["launches_per_emission"],
+        "xtts_decoder_b8_max_abs_err": xtts["checks"]["decoder_b8_max_abs_err"],
     }, {
         "name": "wavernn_sampler",
         "route": "cuda",

@@ -404,3 +404,85 @@ def test_wavernn_plan_matches_the_kernel_layout():
         assert pl.grid <= n_sm
         for rows in (1, 5, pl.rows_per_launch):
             assert lib.wavernn_smem_bytes(rows, R, F, C, pl.grid, int(pl.weights_shared)) == pl.smem_bytes(rows)
+
+
+def _tiny_xtts_on_card(**overrides):
+    """A small XTTS-v2 (2 GPT layers, 64 wide) with the full decoder
+    (512 → 32, upsampling 8·8·2·2) on the card, weights from torch's seed 0;
+    position embeddings ~N(0, 1) so greedy decoding moves between codes."""
+    from tpu_tts_torch.configs.xtts_config import XttsArgs, XttsConfig
+    from tpu_tts_torch.models.xtts import Xtts
+
+    torch.manual_seed(0)
+    args = XttsArgs(gpt_layers=2, gpt_n_heads=2, gpt_n_model_channels=64, gpt_number_text_tokens=50,
+                    gpt_num_audio_tokens=66, gpt_start_audio_token=64, gpt_stop_audio_token=65, num_cond_latents=4,
+                    d_vector_dim=32, decoder_input_dim=64, kv_cache_len=256, **overrides)
+    return Xtts(XttsConfig(model_args=args), device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("n_latents", [8, 24])
+def test_xtts_decoder_through_k1(B, n_latents):
+    """The XTTS decoder (g on `cond_layer` and every `conds.{i}`) at a first
+    chunk's 8 latents and a full chunk's 4 + 20: 72 K1 launches a call, the
+    waveform within 1e-3 of the same decoder with the plain MRF (four
+    stages of float32 sums in another order), each row its own speaker."""
+    import torch.nn.functional as F
+
+    from tpu_tts_torch.vocoder.models import hifigan_generator
+
+    _need_cuda()
+    model = _tiny_xtts_on_card()
+    gen = torch.Generator().manual_seed(1)
+    lat = torch.randn(B, n_latents, 64, generator=gen).cuda()
+    spk = F.normalize(torch.randn(B, 32, generator=gen), dim=-1).cuda()
+    before = hifigan_mrf.launches
+    got = model.net.decode_latents(lat, spk)
+    launched = hifigan_mrf.launches - before
+    hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
+    try:
+        ref = model.net.decode_latents(lat, spk)
+    finally:
+        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
+    torch.cuda.synchronize()
+    frames = math.floor(math.floor(n_latents * 4) * 24000 / 22050)
+    assert launched == 72 and tuple(got.shape) == (B, frames * 256)
+    assert bool(torch.isfinite(got).all()) and float((got - ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_xtts_pool_greedy_codes_score_best_teacher_forced():
+    """Four greedy streams (mixed text lengths, one admitted mid-round) on
+    the card; each stream's codes, replayed teacher-forced through the GPT
+    alone, score within 1e-4 of that step's best logit: another batch size
+    may flip a near-tie, never a clear argmax."""
+    from tpu_tts_torch.infer.xtts_pool import XttsStreamPool
+
+    _need_cuda()
+    model = _tiny_xtts_on_card()
+    with torch.no_grad():
+        for emb in (model.net.gpt.text_pos_embedding.emb, model.net.gpt.mel_pos_embedding.emb):
+            emb.weight.normal_(0.0, 1.0)
+        model.net.gpt.mel_head.bias[model.args.gpt_stop_audio_token] = -1e4  # streams run to their budget
+    gen = torch.Generator().manual_seed(2)
+    rows = [(torch.randint(1, 48, (n,), generator=gen), torch.randn(1, 4, 64, generator=gen),
+             torch.nn.functional.normalize(torch.randn(1, 32, generator=gen), dim=-1)) for n in (5, 9, 12, 7)]
+    pool = XttsStreamPool(model, max_streams=4, stream_chunk_size=8, first_chunk_size=4, max_new_tokens=24, top_k=1,
+                          gather_window_s=0.3)
+    try:
+        streams = [pool.submit(text_tokens=t, gpt_cond_latent=c, speaker_embedding=s) for t, c, s in rows[:3]]
+        first = next(streams[0])
+        streams.append(pool.submit(text_tokens=rows[3][0], gpt_cond_latent=rows[3][1], speaker_embedding=rows[3][2]))
+        chunks = [[first] + list(streams[0])] + [list(st) for st in streams[1:]]
+    finally:
+        pool.close()
+    assert pool.rounds_served == 1 and pool.admissions == 1
+    for (text, cond, _), st, ch in zip(rows, streams, chunks):
+        codes = torch.tensor(st.codes)
+        assert len(codes) > 0 and sum(c.size for c in ch) > 0
+        prev = torch.cat([torch.tensor([model.args.gpt_start_audio_token]), codes[:-1]])[None].cuda()
+        with torch.no_grad():
+            logits = model.net.gpt(cond.cuda(), text[None].cuda(), prev)["mel_logits"][0]
+        gap = logits.max(dim=-1).values - logits.gather(1, codes.cuda()[:, None])[:, 0]
+        assert float(gap.max()) <= 1e-4

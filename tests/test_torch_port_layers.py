@@ -116,7 +116,12 @@ def test_port_imports_neither_jax_nor_tpu_tts():
                             "tpu_tts_torch.text.phonemizers.en_rules", "tpu_tts_torch.infer.batcher",
                             "tpu_tts_torch.managers", "tpu_tts_torch.text.phonemizers.ja_jp_phonemizer",
                             "tpu_tts_torch.text.phonemizers.ko_kr_phonemizer",
-                            "tpu_tts_torch.text.phonemizers.bn_phonemizer")
+                            "tpu_tts_torch.text.phonemizers.bn_phonemizer", "tpu_tts_torch.models.xtts",
+                            "tpu_tts_torch.models.xtts_convert", "tpu_tts_torch.infer.xtts_pool",
+                            "tpu_tts_torch.layers.xtts.gpt", "tpu_tts_torch.layers.xtts.perceiver",
+                            "tpu_tts_torch.layers.xtts.tokenizer", "tpu_tts_torch.layers.xtts.text_norm",
+                            "tpu_tts_torch.layers.xtts.num_words", "tpu_tts_torch.audio.torch_transforms",
+                            "tpu_tts_torch.configs.xtts_config")
                 if m not in sys.modules]  # the serving modules are among those walked
         print(len([m for m in sys.modules if m.startswith("tpu_tts_torch.")]), bad)
         """

@@ -155,3 +155,59 @@ def port_wavernn(jm, **config):
     model = Wavernn(port_wavernn_config(upsample_factors=list(jm.args.upsample_factors), **config), device="cpu")
     model.net.load_state_dict(params_from_flax(jm.params, jm.model_state), strict=True)
     return model
+
+
+# the JAX XTTS fixture's widths (tests/test_xtts.py): 2 GPT layers, 32 wide
+XTTS_ARGS = dict(gpt_layers=2, gpt_n_heads=2, gpt_n_model_channels=32, gpt_number_text_tokens=50,
+                 gpt_num_audio_tokens=34, gpt_start_audio_token=32, gpt_stop_audio_token=33,
+                 gpt_start_text_token=48, gpt_stop_text_token=0, num_cond_latents=4, d_vector_dim=16,
+                 decoder_input_dim=32, decoder_upsample_rates=(4, 4), kv_cache_len=128)
+
+
+def draw_xtts_tree(tree, seed: int):
+    """XTTS params from a numpy seed: norm scales ≈ 1 ± 0.1, the position
+    embeddings ~N(0, 1) (so greedy decoding does not settle on one code),
+    everything else ~N(0, 0.1²)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        names = [getattr(p, "key", "") for p in path]
+        shape = tuple(leaf.shape)
+        if names[-1] in ("scale", "g", "norm_gamma"):
+            return (1.0 + 0.1 * rng.uniform(-1, 1, shape)).astype(np.float32)
+        std = 1.0 if names[-2] in ("text_pos_embedding", "audio_pos_embedding") else 0.1
+        return (std * rng.standard_normal(shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, tree)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_xtts(**overrides):
+    """A tiny JAX `Xtts` (XTTS_ARGS with `overrides`) with seeded params (built once per process)."""
+    from tpu_tts.configs.xtts_config import XttsConfig
+    from tpu_tts.models.xtts import Xtts, XttsArgs, XttsNet
+
+    cfg = XttsConfig()
+    cfg.model_args = XttsArgs(**{**XTTS_ARGS, **overrides})
+    model = Xtts(cfg)
+    shapes = jax.eval_shape(lambda: model.net.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 32, 80)), jnp.zeros((1, 8), jnp.int32), jnp.zeros((1, 12), jnp.int32),
+        method=XttsNet.init_all))["params"]
+    model.params = draw_xtts_tree(shapes, SEED)
+    return model
+
+
+def port_xtts(**overrides):
+    """The port's tiny `Xtts` on the CPU carrying `jax_xtts(**overrides)`'s weights."""
+    from tpu_tts_torch.configs.xtts_config import XttsArgs, XttsConfig
+    from tpu_tts_torch.models.xtts import Xtts
+    from tpu_tts_torch.models.xtts_convert import params_from_flax
+
+    model = Xtts(XttsConfig(model_args=XttsArgs(**{**XTTS_ARGS, **overrides})), device="cpu")
+    model.net.load_state_dict(params_from_flax(jax_xtts(**overrides).params), strict=True)
+    return model
+
+
+def speaker_wav(seed: int, n: int = 11025) -> np.ndarray:
+    """Half a second of seeded noise at 22.05 kHz, the JAX pool tests' cloning audio."""
+    return (np.random.default_rng(seed).standard_normal(n) * 0.3).astype(np.float32)

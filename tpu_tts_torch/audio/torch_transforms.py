@@ -1,0 +1,47 @@
+"""On-device spectrograms of the port.
+
+Counterpart of `tpu_tts/audio/jax_transforms.py` (`wav_to_spec`:281,
+`spec_to_mel`:303, `wav_to_mel`:318): VITS-semantics log-mel, the
+conditioning mel of XTTS's `get_conditioning_latents`. With `center=False`
+the signal is reflect-padded by `(fft_size - hop_length) / 2` on each side,
+framed without centring, and the magnitude is `sqrt(re² + im² + 1e-6)`;
+the mel basis is the port's librosa-compatible one
+(`numpy_transforms.mel_filterbank`); the log is `log(clamp(mel, 1e-5))`.
+`torchaudio_mel` (the fine-tuning mels) waits for XTTS training.
+"""
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tpu_tts_torch.audio.numpy_transforms import _pad_window, get_window, mel_filterbank
+
+
+def wav_to_spec(y: torch.Tensor, *, fft_size: int, hop_length: int, win_length: int,
+                center: bool = False) -> torch.Tensor:
+    """Linear magnitude spectrogram: `[B, T] → [B, fft_size//2 + 1, T_spec]`."""
+    if not center:
+        pad = (fft_size - hop_length) // 2
+        y = F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
+    window = torch.from_numpy(_pad_window(get_window("hann", win_length), fft_size).astype(np.float32))
+    spec = torch.stft(y.float(), fft_size, hop_length=hop_length, win_length=fft_size,
+                      window=window.to(y.device), center=center, pad_mode="reflect", return_complex=True)
+    return torch.sqrt(spec.real**2 + spec.imag**2 + 1e-6)
+
+
+def spec_to_mel(spec: torch.Tensor, *, fft_size: int, num_mels: int, sample_rate: int, fmin: float,
+                fmax: Optional[float]) -> torch.Tensor:
+    """`[B, C, T] → [B, num_mels, T]` log-mel."""
+    basis = mel_filterbank(sample_rate=sample_rate, fft_size=fft_size, num_mels=num_mels, mel_fmin=fmin,
+                           mel_fmax=fmax)
+    mel = torch.matmul(torch.from_numpy(basis).to(spec.device), spec)
+    return torch.log(torch.clamp(mel, min=1e-5))
+
+
+def wav_to_mel(y: torch.Tensor, *, fft_size: int, num_mels: int, sample_rate: int, hop_length: int,
+               win_length: int, fmin: float, fmax: Optional[float], center: bool = False) -> torch.Tensor:
+    """VITS-semantics log-mel: `[B, T] → [B, num_mels, T_spec]`."""
+    spec = wav_to_spec(y, fft_size=fft_size, hop_length=hop_length, win_length=win_length, center=center)
+    return spec_to_mel(spec, fft_size=fft_size, num_mels=num_mels, sample_rate=sample_rate, fmin=fmin, fmax=fmax)

@@ -26,8 +26,20 @@ table, or with d-vectors to the mean of its clips' d-vectors; a language
 name to its id. A model without managers resolves no ids, as in JAX. Voice
 conversion (`reference_wav`) needs the posterior encoder (ROADMAP.md, M6)
 and a d-vector from `speaker_wav` the speaker encoder (M9): both raise.
+
+A model with its own pipeline (XTTS) gets each sentence through its
+`synthesize` (`tpu_tts/infer/synthesizer.py`:223-231), with the speaker
+name (a bundled speaker), `speaker_wav` and the language. `model_dir`
+loads a model directory: `config.json`, a checkpoint (`model.pth`,
+`model_file.pth`, `checkpoint.pth` or the first `.pth`) and the model's
+own files, such as `speakers_xtts.pth` (`_load_tts_from_dir`,
+`tpu_tts/infer/synthesizer.py`:102). The output rate is the model's
+`output_sample_rate` where it has one (XTTS: 24 kHz), else the audio
+config's.
 """
 
+import glob
+import os
 import time
 from typing import List
 
@@ -43,7 +55,7 @@ SENTENCE_GAP = 10000  # samples of silence after each sentence
 
 class Synthesizer:
     def __init__(self, tts_checkpoint: str = "", tts_config_path: str = "", vocoder_checkpoint: str = "",
-                 vocoder_config: str = "", device=None, tts_speakers_file: str = "") -> None:
+                 vocoder_config: str = "", device=None, tts_speakers_file: str = "", model_dir: str = "") -> None:
         """`device`: where the models run, `cuda` unless told otherwise;
         `tts_speakers_file` overrides the config's speakers file."""
         self.device = resolve_device(device)
@@ -63,6 +75,8 @@ class Synthesizer:
             self._load_tts(tts_checkpoint, tts_config_path)
         if vocoder_checkpoint:
             self._load_vocoder(vocoder_checkpoint, vocoder_config)
+        if model_dir:
+            self._load_tts_from_dir(model_dir)
 
     def _load_tts(self, checkpoint: str, config_path: str) -> None:
         from tpu_tts_torch.models import setup_model
@@ -78,9 +92,29 @@ class Synthesizer:
                 self.tts_config.model_args.speakers_file = self.tts_speakers_file
         self.tts_model = setup_model(self.tts_config, device=self.device)
         self.tts_model.load_checkpoint(self.tts_config, checkpoint, eval=True)
+        self._after_tts_load()
+
+    def _after_tts_load(self) -> None:
         self.speaker_manager = self.tts_model.speaker_manager
         self.language_manager = self.tts_model.language_manager
-        self.output_sample_rate = self.tts_config.audio["sample_rate"]
+        rate = getattr(self.tts_model, "output_sample_rate", None)
+        self.output_sample_rate = rate or self.tts_config.audio["sample_rate"]
+
+    def _load_tts_from_dir(self, model_dir: str) -> None:
+        """A model directory with its own `config.json` (XTTS releases)."""
+        from tpu_tts_torch.models import setup_model
+
+        self.tts_config = load_config(os.path.join(model_dir, "config.json"))
+        if hasattr(self.tts_config, "model_dir"):
+            self.tts_config.model_dir = model_dir
+        self.tts_model = setup_model(self.tts_config, device=self.device)
+        names = [p for p in ("model.pth", "model_file.pth", "checkpoint.pth")
+                 if os.path.exists(os.path.join(model_dir, p))] or sorted(
+            os.path.basename(p) for p in glob.glob(os.path.join(model_dir, "*.pth")))
+        if not names:
+            raise FileNotFoundError(f"no .pth checkpoint in {model_dir}")
+        self.tts_model.load_checkpoint(self.tts_config, os.path.join(model_dir, names[0]), eval=True)
+        self._after_tts_load()
 
     def _load_vocoder(self, checkpoint: str, config_path: str) -> None:
         from tpu_tts_torch.audio import AudioProcessor
@@ -160,6 +194,15 @@ class Synthesizer:
             raise NotImplementedError("style references come with the models that read them (ROADMAP.md, M9)")
         start = time.time()
         sens = self.split_into_sentences(text) if split_sentences else [text]
+        if hasattr(self.tts_model, "synthesize"):
+            wavs = []
+            for sen in sens:
+                outputs = self.tts_model.synthesize(text=sen, config=self.tts_config,
+                                                    speaker_id=speaker_name or "random", speaker_wav=speaker_wav,
+                                                    language=language_name or "en", seed=seed, **kwargs)
+                wavs += list(np.asarray(outputs["wav"], dtype=np.float32)) + [0.0] * SENTENCE_GAP
+            self._report(start, wavs)
+            return wavs
         speaker_id, d_vector = self.resolve_speaker(speaker_name, speaker_wav)
         language_id = self.resolve_language(language_name)
         use_gl = self.vocoder_model is None
@@ -173,11 +216,14 @@ class Synthesizer:
                 wav = trim_silence(wav, self.tts_model.ap)
             wavs += list(np.asarray(wav, dtype=np.float32))
             wavs += [0.0] * SENTENCE_GAP
+        self._report(start, wavs)
+        return wavs
+
+    def _report(self, start: float, wavs) -> None:
         process_time = time.time() - start
         audio_time = len(wavs) / self.output_sample_rate
         print(f" > Processing time: {process_time}")
         print(f" > Real-time factor: {process_time / max(audio_time, 1e-9)}")
-        return wavs
 
 
 def _interpolate_mel(mel: np.ndarray, scale_factor: float) -> np.ndarray:

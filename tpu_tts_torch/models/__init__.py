@@ -12,4 +12,8 @@ def setup_model(config, device=None):
         from tpu_tts_torch.models.glow_tts import GlowTTS
 
         return GlowTTS.init_from_config(config, device=device)
+    if name == "xtts":
+        from tpu_tts_torch.models.xtts import Xtts
+
+        return Xtts.init_from_config(config, device=device)
     raise NotImplementedError(f"model `{config.model}` is not ported yet (ROADMAP.md, queue 1)")

@@ -1,0 +1,389 @@
+"""XTTS-v2 inference and streaming on the port's modules.
+
+Counterpart of `tpu_tts/models/xtts.py`: `XttsNet` (`compute_conditioning`
+:133, `generate_latents`:214, `stream_prefill`:267, `stream_chunk`:289,
+`decode_latents`:357) and `Xtts` (`_bundled_speakers`:409, `synthesize`
+:431, `get_conditioning_latents`:507, `inference`:706, `_bucket_text`:754,
+`_n_samples`:766, `inference_stream`:778).
+
+The decode is a Python loop over steps with the KV cache written in place
+(`layers/xtts/gpt.py`); JAX's one-scan programs, its program cache and its
+donated buffers have no counterpart, their results do. Each step divides
+the logits by the temperature, keeps every logit ≥ the k-th largest (ties
+at the k-th value survive, as JAX's `logits < kth` rule) and draws by
+Gumbel-argmax from an explicit `torch.Generator` seeded from `seed`; the
+generator is carried across chunks, so a chunked stream draws what the
+one-loop `generate_latents` draws. With `top_k=1` the draw is the argmax
+and the codes are JAX's up to near-ties; sampled codes are draws of
+another stream than JAX's (ROADMAP.md, queue 3).
+
+`decode_latents` interpolates the latent track ×(gpt_code_stride /
+output_hop_length), then ×(output_sr / input_sr), as `F.interpolate`
+(linear, half-pixel, the given scale) and JAX's `_torch_linear_interp`:69
+do, and runs the HiFi-GAN decoder with g on `cond_layer` and on each `conds.{i}`;
+every stage's MRF stack goes through K1 on the card (72 launches a call).
+
+`inference_stream` raises when a chunk is shorter than `overlap_latents`:
+JAX's overlap tail then shrinks (`tpu_tts/models/xtts.py`:854), so the
+next chunk's context and crop misalign.
+
+The speaker embedding comes from `speaker_proj` of the mean latent. A
+Coqui checkpoint carries Coqui's decoder-side ResNet speaker encoder
+instead; that encoder is not ported (ROADMAP.md, M9), so such a model
+serves its bundled speakers (`speakers_xtts.pth`) and raises on
+`speaker_wav`.
+"""
+
+import math
+import os
+from typing import Dict, Iterator
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from tpu_tts_torch.audio.torch_transforms import wav_to_mel
+from tpu_tts_torch.configs.xtts_config import XttsArgs
+from tpu_tts_torch.layers.xtts.gpt import XttsGPT
+from tpu_tts_torch.layers.xtts.tokenizer import VoiceBpeTokenizer
+from tpu_tts_torch.models.base_tts import BaseTTSModel
+from tpu_tts_torch.ops.helpers import bucket_len
+from tpu_tts_torch.vocoder.models.hifigan_generator import HifiganGenerator
+
+NO_SPEAKER_ENCODER = ("this XTTS checkpoint computes speaker embeddings with Coqui's ResNet speaker encoder, which "
+                      "is not ported yet (ROADMAP.md, M9): use a bundled `speaker_id`")
+
+
+def linear_interp(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """`F.interpolate(x, scale_factor=scale, mode="linear",
+    align_corners=False, recompute_scale_factor=False)` on the time axis of
+    `[B, C, T]`: floor(T·scale) outputs at half-pixel source positions from
+    the given scale. Where floor(T·scale) == T, `F.interpolate` returns its
+    input unchanged and JAX's `_torch_linear_interp`:69 still resamples;
+    this follows JAX (ROADMAP.md, queue 3, F6)."""
+    T = x.shape[-1]
+    pos = (torch.arange(math.floor(T * scale), device=x.device, dtype=torch.float32) + 0.5) / scale - 0.5
+    pos = pos.clamp(0.0, T - 1)
+    lo = pos.floor().long()
+    hi = (lo + 1).clamp(max=T - 1)
+    w = (pos - lo).to(x.dtype)
+    return x[..., lo] * (1 - w) + x[..., hi] * w
+
+
+def sample_codes(logits: torch.Tensor, temperature: float, top_k: int, generator: torch.Generator) -> torch.Tensor:
+    """One draw per row of `logits` `[B, V]`: temperature, JAX's top-k rule
+    (drop a logit only when it is below the k-th largest), Gumbel-argmax."""
+    logits = logits / temperature
+    if top_k:
+        kth = torch.topk(logits, min(int(top_k), logits.shape[-1]), dim=-1).values[:, -1:]
+        logits = logits.masked_fill(logits < kth, -1e9)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.argmax(logits.float() + gumbel, dim=-1)
+
+
+def _check_room(cache, rows: int):
+    """JAX clamps a cache write past the end onto the last rows; the port
+    refuses a decode that would need more rows than `kv_cache_len`."""
+    if rows > cache.shape[2]:
+        raise ValueError(f"the prompt and the decode steps need {rows} KV-cache rows, kv_cache_len is "
+                         f"{cache.shape[2]}: ask for fewer tokens")
+
+
+class XttsNet(nn.Module):
+    """The inference modules of XTTS-v2; attribute names are the Coqui
+    state-dict prefixes (`gpt.*`, `hifigan_decoder.waveform_decoder.*`), and
+    `speaker_proj` the port's and JAX's speaker projection."""
+
+    def __init__(self, args: XttsArgs, ref_speaker_encoder: bool = False):
+        super().__init__()
+        self.args = args
+        a = args
+        self.gpt = XttsGPT(
+            n_layer=a.gpt_layers, n_head=a.gpt_n_heads, n_embd=a.gpt_n_model_channels,
+            num_text_tokens=a.gpt_number_text_tokens, num_audio_tokens=a.gpt_num_audio_tokens,
+            max_text_tokens=a.gpt_max_text_tokens, max_audio_tokens=a.gpt_max_audio_tokens,
+            num_cond_latents=a.num_cond_latents,
+        )
+        self.use_ref_speaker_encoder = ref_speaker_encoder
+        if not ref_speaker_encoder:
+            self.speaker_proj = nn.Linear(a.gpt_n_model_channels, a.d_vector_dim)
+        rates = tuple(a.decoder_upsample_rates)
+        self.hifigan_decoder = nn.ModuleDict({"waveform_decoder": HifiganGenerator(
+            in_channels=a.decoder_input_dim, out_channels=1, upsample_factors=rates,
+            upsample_kernel_sizes=tuple(2 * r for r in rates), upsample_initial_channel=512,
+            resblock_kernel_sizes=(3, 7, 11), resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
+            cond_channels=a.d_vector_dim, cond_in_each_up_layer=True,
+        )})
+
+    # ---------------------------------------------------------- conditioning
+    @torch.no_grad()
+    def compute_conditioning(self, mel):
+        """Reference mel `[B, C_mel, T]` → (gpt cond latents `[B, n, C]`,
+        L2-normalised speaker embedding `[B, d]`)."""
+        latents = self.gpt.conditioning_perceiver(self.gpt.conditioning_encoder(mel).transpose(1, 2))
+        if self.use_ref_speaker_encoder:
+            raise NotImplementedError(NO_SPEAKER_ENCODER)
+        spk = self.speaker_proj(latents.mean(dim=1))
+        return latents, spk / torch.clamp(torch.linalg.vector_norm(spk, dim=-1, keepdim=True), min=1e-12)
+
+    # ------------------------------------------------------------- inference
+    def _step(self, cache, prompt_len: int, code, stopped, generator, i: int, temperature: float, top_k: int,
+              key_valid=None, audio_start=None):
+        pos = i if audio_start is None else i - audio_start
+        logits, latent, cache = self.gpt.decode_step(code, pos, cache, prompt_len + i, key_valid=key_valid)
+        nxt = sample_codes(logits, temperature, top_k, generator)
+        return nxt, latent, stopped | (nxt == self.args.gpt_stop_audio_token), ~stopped
+
+    @torch.no_grad()
+    def generate_latents(self, cond_latents, text_tokens, generator: torch.Generator, max_new_tokens: int,
+                         temperature: float = 0.75, top_k: int = 50, text_lengths=None):
+        """Sampled autoregressive decode of `max_new_tokens` steps. Returns
+        (codes `[B, T]`, latents `[B, T, C]`, valid `[B, T]`)."""
+        a = self.args
+        cache, prompt_len, code = self.stream_prefill(cond_latents, text_tokens, text_lengths=text_lengths)
+        _check_room(cache, prompt_len + max_new_tokens)
+        key_valid = None
+        if text_lengths is not None:
+            key_valid = self.gpt.key_valid_mask(cond_latents.shape[1], prompt_len, text_lengths, a.kv_cache_len)
+        stopped = torch.zeros(text_tokens.shape[0], dtype=torch.bool, device=text_tokens.device)
+        codes, latents, valid = [], [], []
+        for i in range(max_new_tokens):
+            code, latent, stopped, ok = self._step(cache, prompt_len, code, stopped, generator, i, temperature,
+                                                   top_k, key_valid)
+            codes.append(code)
+            latents.append(latent)
+            valid.append(ok)
+        return torch.stack(codes, 1), torch.stack(latents, 1), torch.stack(valid, 1)
+
+    @torch.no_grad()
+    def stream_prefill(self, cond_latents, text_tokens, text_lengths=None, cond_lengths=None, cache_len: int = None):
+        """Build the KV cache over the prompt: (cache, prompt_len, start
+        codes `[B]`). `cache_len` allocates only that many cache rows (the
+        pool's admission prefill: the prompt rows alone)."""
+        B = text_tokens.shape[0]
+        cache = self.gpt.init_cache(B, cache_len or self.args.kv_cache_len)
+        cache, prompt_len, _ = self.gpt.prefill(cond_latents, text_tokens, cache, text_lengths=text_lengths,
+                                                cond_lengths=cond_lengths)
+        start = torch.full((B,), self.args.gpt_start_audio_token, dtype=torch.long, device=text_tokens.device)
+        return cache, prompt_len, start
+
+    @torch.no_grad()
+    def stream_chunk(self, cache, prompt_len: int, code, stopped, generator: torch.Generator, i0: int,
+                     chunk_len: int, temperature: float = 0.75, top_k: int = 50, text_lengths=None,
+                     n_cond: int = None, cond_lengths=None, audio_start=None):
+        """`chunk_len` decode steps from absolute step `i0`, the same
+        per-step math as `generate_latents`. `n_cond` is the padded
+        conditioning width the prefill saw, `cond_lengths` each row's real
+        latent count; `audio_start` `[B]` the step at which each row joined
+        the shared timeline (its audio positions count from there, its
+        cache writes share the absolute index). Returns ((cache, code,
+        stopped), (codes, latents, valid))."""
+        a = self.args
+        _check_room(cache, prompt_len + i0 + chunk_len)
+        key_valid = None
+        if text_lengths is not None:
+            key_valid = self.gpt.key_valid_mask(a.num_cond_latents if n_cond is None else n_cond, prompt_len,
+                                                text_lengths, cache.shape[2], cond_lengths=cond_lengths,
+                                                audio_start=audio_start)
+        codes, latents, valid = [], [], []
+        for i in range(i0, i0 + chunk_len):
+            code, latent, stopped, ok = self._step(cache, prompt_len, code, stopped, generator, i, temperature,
+                                                   top_k, key_valid, audio_start)
+            codes.append(code)
+            latents.append(latent)
+            valid.append(ok)
+        return (cache, code, stopped), (torch.stack(codes, 1), torch.stack(latents, 1), torch.stack(valid, 1))
+
+    @torch.no_grad()
+    def decode_latents(self, latents, spk_embedding):
+        """GPT latents `[B, T, C]` → waveform `[B, T_wav]` through the HiFi-GAN
+        decoder, after the two linear interpolations of Coqui's HifiDecoder."""
+        a = self.args
+        x = linear_interp(latents.transpose(1, 2), a.gpt_code_stride / a.output_hop_length)
+        if a.output_sample_rate != a.input_sample_rate:
+            x = linear_interp(x, a.output_sample_rate / a.input_sample_rate)
+        return self.hifigan_decoder["waveform_decoder"](x, g=spk_embedding[:, :, None])[:, 0]
+
+
+class Xtts(BaseTTSModel):
+    # serving text-length grid: prompts are right-padded to a multiple of
+    # this and the pad rows are key-masked
+    TEXT_BUCKET = 32
+
+    def __init__(self, config, ap=None, tokenizer=None, device=None):
+        super().__init__(config, ap, tokenizer, device)
+        args = config.model_args
+        if isinstance(args, dict):
+            args = XttsArgs.from_dict(args)
+            config.model_args = args
+        self.args = args
+        if isinstance(tokenizer, VoiceBpeTokenizer):
+            self.bpe = tokenizer
+        else:
+            # a `vocab.json` of the model directory is read if there is one
+            vocab = config.model_dir and os.path.join(str(config.model_dir), "vocab.json")
+            self.bpe = VoiceBpeTokenizer(args.tokenizer_file or (vocab if vocab and os.path.exists(vocab) else None))
+        if self.bpe.is_loaded:  # the [START]/[STOP] framing ids of the vocab
+            for attr, token in (("gpt_start_text_token", "[START]"), ("gpt_stop_text_token", "[STOP]")):
+                tid = self.bpe.tokenizer.token_to_id(token)
+                if tid is not None:
+                    setattr(self.args, attr, int(tid))
+        self.net = XttsNet(self.args).to(self.device).eval()
+        self._speakers = None  # lazy speakers_xtts.pth (name → cloning latents)
+
+    @property
+    def output_sample_rate(self) -> int:
+        return int(self.args.output_sample_rate)
+
+    def _float(self, x) -> torch.Tensor:
+        x = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x, dtype=np.float32))
+        return x.to(device=self.device, dtype=torch.float32)
+
+    def load_checkpoint(self, config, checkpoint_path: str, eval: bool = True, strict: bool = True):
+        """A `.pth` of the port's `state_dict` or a Coqui XTTS-v2 checkpoint
+        (`models/xtts_convert.py`); one that carries Coqui's speaker encoder
+        rebuilds the net without `speaker_proj`. Without a `model_dir` in the
+        config, the checkpoint's directory is the model directory (its
+        `speakers_xtts.pth`)."""
+        from tpu_tts_torch.models.xtts_convert import load_xtts_checkpoint
+
+        if not getattr(self.config, "model_dir", None):
+            self.config.model_dir = os.path.dirname(os.path.abspath(checkpoint_path))
+            self._speakers = None
+        ckpt = load_xtts_checkpoint(self, checkpoint_path, strict=strict)
+        if eval:
+            self.net.eval()
+        return ckpt
+
+    # ----------------------------------------------------- bundled speakers
+    def _bundled_speakers(self) -> Dict:
+        """`speakers_xtts.pth` of the model directory: speaker name →
+        {gpt_cond_latent, speaker_embedding}, on the model's device."""
+        if self._speakers is None:
+            self._speakers = {}
+            model_dir = getattr(self.config, "model_dir", None)
+            path = os.path.join(str(model_dir), "speakers_xtts.pth") if model_dir else None
+            if path and os.path.exists(path):
+                data = torch.load(path, map_location="cpu", weights_only=True)
+                for name, d in data.items():
+                    self._speakers[name] = {k: self._float(v) for k, v in d.items()}
+        return self._speakers
+
+    def speaker_latents(self, speaker_id: str):
+        """(cond `[1, n, C]`, spk `[1, d]`) of a bundled speaker."""
+        d = self._bundled_speakers()[speaker_id]
+        cond = d["gpt_cond_latent"].reshape(1, -1, self.args.gpt_n_model_channels)
+        return cond, d["speaker_embedding"].reshape(1, -1)
+
+    def synthesize(self, text: str, config=None, speaker_wav=None, language: str = "en", speaker_id: str = None,
+                   voice_dirs=None, **kwargs) -> Dict:
+        """The Synthesizer's entry: cloning latents from a bundled
+        `speaker_id` or from `speaker_wav` (file paths or arrays), then
+        `inference`."""
+        cfg = config or self.config
+        if speaker_id and speaker_id != "random" and speaker_id in self._bundled_speakers():
+            cond, spk = self.speaker_latents(speaker_id)
+        elif speaker_wav is not None:
+            from tpu_tts_torch.audio.numpy_transforms import load_wav
+
+            files = speaker_wav if isinstance(speaker_wav, (list, tuple)) else [speaker_wav]
+            sr = self.args.input_sample_rate
+            arrs = [w if isinstance(w, np.ndarray) else load_wav(filename=w, sample_rate=sr, resample=True)
+                    for w in files]
+            cond, spk = self.get_conditioning_latents(np.concatenate(arrs), sr=sr)
+        else:
+            raise ValueError(" [!] XTTS needs `speaker_wav` (cloning audio) or a bundled `speaker_id`.")
+        return self.inference(text=text, language=language, gpt_cond_latent=cond, speaker_embedding=spk,
+                              temperature=kwargs.pop("temperature", getattr(cfg, "temperature", 0.75)),
+                              top_k=kwargs.pop("top_k", getattr(cfg, "top_k", 50)) or 50, **kwargs)
+
+    # ---------------------------------------------------------- conditioning
+    def get_conditioning_latents(self, audio: np.ndarray, sr: int = 22050):
+        """Cloning audio → (gpt_cond_latent `[1, n, C]`, speaker_embedding `[1, d]`)."""
+        if self.net.use_ref_speaker_encoder:
+            raise NotImplementedError(NO_SPEAKER_ENCODER)
+        wav = self._float(audio).reshape(1, -1)
+        mel = wav_to_mel(wav, fft_size=1024, num_mels=80, sample_rate=sr, hop_length=256, win_length=1024, fmin=0,
+                         fmax=None, center=False)
+        return self.net.compute_conditioning(mel)
+
+    # ------------------------------------------------------------- inference
+    def _text_ids(self, text, language, text_tokens) -> torch.Tensor:
+        if text_tokens is None:
+            text_tokens = [self.bpe.encode(text, language)]
+        ids = text_tokens if isinstance(text_tokens, torch.Tensor) else torch.as_tensor(np.asarray(text_tokens))
+        ids = ids.to(device=self.device, dtype=torch.long)
+        return ids[None] if ids.ndim == 1 else ids
+
+    def _bucket_text(self, text_tokens: torch.Tensor):
+        """Right-pad `[B, T]` ids to the bucket grid (capped at the text
+        position table): (padded `[B, T_pad]`, lengths `[B]`)."""
+        B, T = text_tokens.shape
+        T_pad = bucket_len(T, self.TEXT_BUCKET, cap=self.args.gpt_max_text_tokens + 2)
+        lengths = torch.full((B,), T, dtype=torch.long, device=text_tokens.device)
+        return F.pad(text_tokens, (0, T_pad - T)), lengths
+
+    def _n_samples(self, n_tokens: int) -> int:
+        """Output samples of `n_tokens` GPT tokens through `decode_latents`:
+        1024 × 24000/22050 ≈ 1114.56 a token for XTTS-v2."""
+        a = self.args
+        spf = (a.gpt_code_stride / a.output_hop_length * (a.output_sample_rate / a.input_sample_rate)
+               * int(np.prod(a.decoder_upsample_rates)))
+        return int(n_tokens * spf)
+
+    def inference(self, text: str = None, language: str = "en", gpt_cond_latent=None, speaker_embedding=None,
+                  max_new_tokens: int = 256, temperature: float = 0.75, top_k: int = 50, seed: int = 0,
+                  text_tokens=None, **kwargs) -> Dict:
+        """Whole-utterance synthesis: {"wav": float32 `[T]`, "gpt_codes": `[1, max_new_tokens]`}."""
+        ids, lengths = self._bucket_text(self._text_ids(text, language, text_tokens))
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        codes, latents, valid = self.net.generate_latents(self._float(gpt_cond_latent), ids, gen, max_new_tokens,
+                                                          temperature, top_k, lengths)
+        wav = self.net.decode_latents(latents, self._float(speaker_embedding))
+        n_valid = int(valid[0].sum())
+        return {"wav": wav[0, : self._n_samples(n_valid)].cpu().numpy(), "gpt_codes": codes.cpu().numpy()}
+
+    def inference_stream(self, text: str = None, language: str = "en", gpt_cond_latent=None, speaker_embedding=None,
+                         stream_chunk_size: int = 20, first_chunk_size: int = 8, overlap_latents: int = 4,
+                         max_new_tokens: int = 256, temperature: float = 0.75, top_k: int = 50, seed: int = 0,
+                         text_tokens=None, **kwargs) -> Iterator[np.ndarray]:
+        """Incremental streaming: one prefill, then a chunk of decode steps at
+        a time (the first `first_chunk_size`, then `stream_chunk_size`), each
+        chunk's valid latents decoded with `overlap_latents` of left context
+        from the one before and yielded as float32 audio."""
+        ovl = int(overlap_latents)
+        if min(stream_chunk_size, first_chunk_size) < ovl:
+            raise ValueError(f"stream_chunk_size ({stream_chunk_size}) and first_chunk_size ({first_chunk_size}) "
+                             f"must be >= overlap_latents ({ovl}): a shorter chunk leaves less overlap context "
+                             "than the next chunk's crop assumes")
+        ids, lengths = self._bucket_text(self._text_ids(text, language, text_tokens))
+        cond, spk = self._float(gpt_cond_latent), self._float(speaker_embedding)
+        cache, prompt_len, code = self.net.stream_prefill(cond, ids, lengths)
+        stopped = torch.zeros(ids.shape[0], dtype=torch.bool, device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        tail = None  # [B, ovl, C]: the previous chunk's last latents
+        i0 = 0
+        while i0 < max_new_tokens:
+            first = i0 == 0
+            size = min(first_chunk_size if first else stream_chunk_size, max_new_tokens)
+            n_steps = min(size, max_new_tokens - i0)
+            (cache, code, stopped), (_, lats, valid) = self.net.stream_chunk(
+                cache, prompt_len, code, stopped, gen, i0, size, temperature, top_k, lengths, cond.shape[1])
+            mask = valid & (torch.arange(size, device=self.device)[None] < n_steps)
+            lats = lats * mask[:, :, None].to(lats.dtype)
+            x = lats if (first or not ovl) else torch.cat([tail, lats], dim=1)
+            tail = lats[:, lats.shape[1] - ovl :]
+            nv = int(mask[0].sum())
+            if nv > 0:
+                wav = self.net.decode_latents(x, spk)
+                lead = 0 if (first or not ovl) else self._n_samples(ovl)
+                yield wav[0, lead : lead + self._n_samples(nv)].cpu().numpy()
+            if bool(stopped.all()) or nv < n_steps:
+                break
+            i0 += size
+
+    @staticmethod
+    def init_from_config(config, device=None):
+        return Xtts(config, device=device)

@@ -7,7 +7,10 @@ Counterpart of `tpu_tts/vocoder/models/hifigan_generator.py`
 runs in plain PyTorch, as `tpu_tts` runs it in plain XLA and never sends it
 to its Pallas kernel. With `cond_channels`, a 1×1 projection of the speaker
 embedding g `[B, C_g, 1]` is added after `conv_pre`, outside the kernel, as
-in `tpu_tts/ops/hifigan_pallas.py::hifigan_apply_pallas`. As in the flax
+in `tpu_tts/ops/hifigan_pallas.py::hifigan_apply_pallas`. With
+`cond_in_each_up_layer` (the XTTS decoder), a 1×1 projection `conds.{i}` of
+g is also added after each `ups.{i}`, before the stage's MRF, outside the
+kernel too (`tpu_tts/vocoder/models/hifigan_generator.py`:128-129). As in the flax
 generator, the final leaky relu has slope 0.01; the port's generator runs
 in float32 throughout (the kernel also takes bfloat16).
 """
@@ -89,9 +92,6 @@ class HifiganGenerator(nn.Module):
         cond_in_each_up_layer: bool = False,
     ):
         super().__init__()
-        if cond_in_each_up_layer:
-            raise NotImplementedError("the XTTS decoder's conditioning after each upsample (`conds_{i}`) comes "
-                                      "with XTTS (ROADMAP.md, M7)")
         self.resblock_type = str(resblock_type)
         resblock_cls = ResBlock1 if self.resblock_type == "1" else ResBlock2
         self.num_kernels = len(resblock_kernel_sizes)
@@ -101,10 +101,14 @@ class HifiganGenerator(nn.Module):
             self.cond_layer = nn.Conv1d(cond_channels, upsample_initial_channel, 1)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
+        if cond_channels and cond_in_each_up_layer:
+            self.conds = nn.ModuleList()
         for i, (u, k) in enumerate(zip(upsample_factors, upsample_kernel_sizes)):
             ch_in = upsample_initial_channel // (2**i)
             ch = upsample_initial_channel // (2 ** (i + 1))
             self.ups.append(WNConvTranspose1d(ch_in, ch, k, u))
+            if hasattr(self, "conds"):
+                self.conds.append(nn.Conv1d(cond_channels, ch, 1))
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
                 self.resblocks.append(resblock_cls(ch, rk, tuple(rd)))
         self.conv_post = WNConv1d(ch, out_channels, 7)
@@ -125,12 +129,14 @@ class HifiganGenerator(nn.Module):
 
     def forward(self, x, g=None):
         """x `[B, C_in, T]`; g `[B, C_g, 1]`, read when the generator has a
-        `cond_layer`."""
+        `cond_layer` (and `conds`)."""
         o = self.conv_pre(x)
         if g is not None and hasattr(self, "cond_layer"):
             o = o + self.cond_layer(g)
         for i in range(self.num_upsamples):
             o = self.ups[i](F.leaky_relu(o, LRELU_SLOPE))
+            if g is not None and hasattr(self, "conds"):
+                o = o + self.conds[i](g)
             if self.resblock_type == "1":
                 o = mrf_stack(o, self.mrf_stage(i))
             else:
