@@ -80,7 +80,27 @@ result line:
    replayed teacher-forced (`xtts card checks`); one `/api/tts` request
    with `speaker_wav`; profiles of a stream's chunk and a pool emission and
    the GPT's ms per step at B = 1 and 8 (`profile` lines);
-12. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
+12. VITS training (M6): K1's gradient guard (an eval() generator on the card
+   whose parameters require grad raises, as does a CUDA input that does;
+   under no_grad it launches K1); one D and one G step of a tiny VITS on
+   the card against the same step on the CPU (`train card vs cpu`); then
+   the default full-width VITS (its decoder redrawn at unit gain, so that
+   its tanh does not saturate) at batch 32, float32, TF32 off, on 64 clips
+   of 2–10 s written from a seed in LJSpeech's layout (`en_rules`
+   phonemes), trained through `Trainer.fit` for 5 epochs of 2 steps: the
+   ms of a step split into the D sub-step, the G sub-step and the
+   optimizer updates (CUDA events), clips and seconds of audio a wall
+   second, the MAS host round trip, the peak allocated memory, the first
+   and last losses, every loss finite and every parameter with a nonzero
+   gradient at step 2, K1 launched no time (`train steps`, `train
+   losses`); one more epoch uninterrupted against the same epoch resumed
+   by a new model from the checkpoint (`train resume`); a profile of one
+   step; 20 steps of a fresh model on one batch with the same draws and
+   dropout masks, the median mel loss of the last 10 below the first's
+   (`train overfit`);
+   the trained checkpoint served by `/api/tts` through K1, 72 launches,
+   within 1e-3 of the plain MRF (`train serve`);
+13. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
 
 Each serving phase's requests are a main path: the launch counts are set to
 0 just before them and read just after. Phases 5 and 6 take the locked
@@ -1424,6 +1444,467 @@ def xtts_profile(model) -> dict:
     return out
 
 
+# The training phase: the default full-width VITS at batch 32 on 64 clips of LJSpeech's lengths
+TRAIN_CLIPS, TRAIN_EVAL_CLIPS, TRAIN_BATCH = 64, 4, 32
+TRAIN_EPOCHS = 5  # 2 steps an epoch; then one more epoch, resumed and uninterrupted
+OVERFIT_STEPS = 20
+TRAIN_STEP_TOL = (1e-4, 1e-3)  # tiny step, card against CPU: losses (relative), each gradient (of its max |g|)
+RESUME_TOL = 1e-3  # the resumed run's next step against the uninterrupted run's, losses relative
+TRAIN_WORDS = ("the birch canoe slid on smooth planks glue sheet to dark blue background it is easy tell depth of "
+               "a well these days chicken leg rare dish rice often served in round bowls juice lemons makes fine "
+               "punch box was thrown beside parked truck hogs were fed chopped corn and garbage four hours steady "
+               "work faced us large size stockings hard sell").split()
+
+
+def write_ljspeech(root: str, seed: int = SEED) -> dict:
+    """TRAIN_CLIPS training clips (`metadata.csv`) and TRAIN_EVAL_CLIPS eval
+    clips (`metadata_val.csv`) in LJSpeech's layout, drawn from a numpy seed:
+    2–10 s of a voiced tone (a wandering f0 with harmonics and noise, an
+    envelope per syllable) at 22050 Hz, texts of 40–180 characters."""
+    import numpy as np
+    import scipy.io.wavfile
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "wavs"), exist_ok=True)
+    sr, seconds = 22050, []
+    for meta, n in (("metadata.csv", TRAIN_CLIPS), ("metadata_val.csv", TRAIN_EVAL_CLIPS)):
+        lines = []
+        for i in range(n):
+            name = f"{meta[:-4]}-{i:04d}"
+            dur = rng.uniform(2.0, 10.0)
+            t = np.arange(int(sr * dur)) / sr
+            f0 = 110 + 40 * rng.uniform() + 20 * np.sin(2 * np.pi * rng.uniform(0.2, 1.0) * t)
+            phase = 2 * np.pi * np.cumsum(f0) / sr
+            sig = sum(rng.uniform(0.1, 0.5) / h * np.sin(h * phase) for h in range(1, 8))
+            sig = sig * (0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(2.0, 5.0) * t)) + 0.01 * rng.standard_normal(t.size)
+            sig = sig / np.abs(sig).max() * rng.uniform(0.4, 0.9)
+            scipy.io.wavfile.write(os.path.join(root, "wavs", name + ".wav"), sr, (sig * 32767).astype(np.int16))
+            target, words = rng.integers(40, 181), []
+            while len(" ".join(words)) < target:
+                words.append(TRAIN_WORDS[rng.integers(len(TRAIN_WORDS))])
+            text = (" ".join(words)[:target].rstrip() + ".").capitalize()
+            lines.append(f"{name}|{text}|{text}")
+            seconds.append(dur)
+        with open(os.path.join(root, meta), "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+    return {"clips": len(seconds), "audio_s": float(sum(seconds)), "min_s": min(seconds), "max_s": max(seconds)}
+
+
+def train_config(root: str, out: str, epochs: int):
+    """The LJSpeech VITS recipe's settings (`recipes/ljspeech/vits_tts/
+    train_vits.py`) at the default full width, in float32 (the recipe's
+    mixed precision is not ported) and with the `en_rules` phonemes (no
+    espeak on the card's machine)."""
+    from tpu_tts_torch.config.shared_configs import BaseDatasetConfig
+    from tpu_tts_torch.configs.vits_config import VitsConfig
+
+    return VitsConfig(
+        batch_size=TRAIN_BATCH, eval_batch_size=TRAIN_EVAL_CLIPS, batch_group_size=5, num_loader_workers=4,
+        run_eval=True, test_delay_epochs=-1, epochs=epochs, print_step=1, save_step=0, save_n_checkpoints=10,
+        output_path=out, use_phonemes=True, phonemizer="en_rules", phoneme_language="en",
+        text_cleaner="phoneme_cleaners", training_seed=SEED + 1,
+        datasets=[BaseDatasetConfig(formatter="ljspeech", dataset_name="smoke", path=root,
+                                    meta_file_train="metadata.csv", meta_file_val="metadata_val.csv")])
+
+
+class TrainProbe:
+    """Watches a `Trainer` without changing what it computes: per step the
+    wall time (host clock, synchronised), CUDA events around each sub-step's
+    loss and backward and each optimizer update, the losses, the batch's
+    clips and seconds of audio; the MAS host round trips; at the second step,
+    every parameter whose gradient is missing or zero."""
+
+    def __init__(self, trainer):
+        import torch
+
+        import tpu_tts_torch.models.vits as vits_module
+
+        self.steps, self.mas_ms, self.zero_grads, self.cur = [], [], None, None
+        self.sr = trainer.model.config.audio.sample_rate
+        model = trainer.model
+        names = [{id(p): n for n, p in model.disc.named_parameters()}, {id(p): n for n, p in model.net.named_parameters()}]
+        orig_loss = model.loss_fn
+
+        def loss_fn(batch, optimizer_idx, generator=None, draws=None):
+            self._mark(f"loss{optimizer_idx}")
+            loss, logs = orig_loss(batch, optimizer_idx, generator=generator, draws=draws)
+            if self.cur is not None:
+                self.cur["logs"].update({f"opt{optimizer_idx}_{k}": v.detach() for k, v in logs.items()})
+            return loss, logs
+
+        model.loss_fn = loss_fn
+        for idx, opt in enumerate(trainer.optimizers):
+            def step(orig=opt.step, idx=idx, opt=opt):
+                self._mark(f"opt{idx}_start")
+                if len(self.steps) == 1 and self.cur is not None:  # the second step
+                    zero = [names[idx].get(id(p), "?") for p in opt.params
+                            if p.grad is None or not bool(p.grad.abs().max() > 0)]
+                    self.zero_grads = (self.zero_grads or []) + zero
+                applied = orig()
+                self._mark(f"opt{idx}_end")
+                return applied
+            opt.step = step
+
+        orig_step = trainer.train_step
+
+        def train_step(batch):
+            self.cur = {"events": {}, "logs": {}, "clips": int(batch["waveform"].shape[0]),
+                        "audio_s": float(batch["waveform_lengths"].sum()) / self.sr}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig_step(batch)
+            torch.cuda.synchronize()
+            self.cur["wall_s"] = time.perf_counter() - t0
+            self.steps.append(self.cur)
+            self.cur = None
+            return out
+
+        trainer.train_step = train_step
+        orig_mas = vits_module.maximum_path
+
+        def maximum_path(value, mask):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = orig_mas(value, mask)
+            torch.cuda.synchronize()
+            if self.cur is not None:
+                self.mas_ms.append((time.perf_counter() - t0) * 1e3)
+            return path
+
+        vits_module.maximum_path = maximum_path
+        self._restore = lambda: setattr(vits_module, "maximum_path", orig_mas)
+
+    def _mark(self, name: str):
+        import torch
+
+        if self.cur is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.cur["events"][name] = ev
+
+    def close(self):
+        self._restore()
+
+    def step_ms(self, step: dict) -> dict:
+        ev = step["events"]
+        ms = lambda a, b: ev[a].elapsed_time(ev[b])  # noqa: E731
+        return {"d_substep_ms": ms("loss0", "opt0_start"), "g_substep_ms": ms("loss1", "opt1_start"),
+                "optimizer_ms": ms("opt0_start", "opt0_end") + ms("opt1_start", "opt1_end"),
+                "step_ms": ms("loss0", "opt1_end"), "wall_ms": step["wall_s"] * 1e3}
+
+    @staticmethod
+    def losses(step: dict) -> dict:
+        return {k: float(v) for k, v in step["logs"].items()}
+
+
+def randomize_module(module, gen):
+    """Every parameter from a seeded generator: weight-norm gains and layer-norm
+    scales ≈ 1 ± 0.1, the rest ~N(0, 0.1²), so that the zero-initialised
+    flow and spline projections do work."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith(("original0", "gamma")):
+                p.copy_(1 + 0.1 * (2 * torch.rand(p.shape, generator=gen) - 1))
+            else:
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+
+
+def check_train_step_card_vs_cpu() -> dict:
+    """One D step and one G step at a tiny config (hidden 32, HiFi-GAN 32 →
+    8 over ×4 ×4) on the card against the same step on the CPU: the same
+    weights, batch and draws; losses within TRAIN_STEP_TOL[0] relative, each
+    gradient within TRAIN_STEP_TOL[1] of its tensor's largest |gradient|
+    (plus 1e-6 for gradients that are 0 analytically). Float32 with TF32 off
+    on both; the rest is the order of the sums (cuDNN against the CPU's
+    kernels)."""
+    import numpy as np
+    import torch
+
+    from tpu_tts_torch.configs.vits_config import VitsArgs, VitsAudioConfig, VitsConfig
+    from tpu_tts_torch.models.vits import Vits
+
+    args = dict(num_chars=40, hidden_channels=32, hidden_channels_ffn_text_encoder=48, num_heads_text_encoder=2,
+                num_layers_text_encoder=2, num_layers_flow=2, out_channels=33, num_layers_posterior_encoder=1,
+                spec_segment_size=4, upsample_rates_decoder=[4, 4], upsample_kernel_sizes_decoder=[8, 8],
+                upsample_initial_channel_decoder=32, resblock_kernel_sizes_decoder=[3, 7],
+                resblock_dilation_sizes_decoder=[[1, 3], [1, 3]], periods_multi_period_discriminator=[2],
+                dropout_p_text_encoder=0.0, dropout_p_duration_predictor=0.0)
+    config = VitsConfig(model_args=VitsArgs(**args), audio=VitsAudioConfig(fft_size=64, win_length=64, hop_length=16,
+                                                                           num_mels=20))
+    models = {}
+    for dev in ("cpu", "cuda"):
+        m = Vits(config, device=dev)
+        m.init_training()
+        models[dev] = m
+    gen = torch.Generator().manual_seed(SEED)
+    randomize_module(models["cpu"].net, gen)
+    randomize_module(models["cpu"].disc, gen)
+    models["cuda"].load_training_state(models["cpu"].training_state_dict(), strict=True)
+    rng = np.random.default_rng(SEED)
+    B, T_x, T_spec, hop = 2, 11, 24, 16
+    wav = np.zeros((B, 1, T_spec * hop), np.float32)
+    for i, n in enumerate((T_spec, 18)):
+        t = np.arange(n * hop)
+        wav[i, 0, : n * hop] = 0.4 * np.sin(2 * np.pi * (0.03 + 0.01 * i) * t) + 0.05 * rng.standard_normal(n * hop)
+    x = np.zeros((B, T_x), np.int64)
+    x[0], x[1, :7] = rng.integers(1, 40, T_x), rng.integers(1, 40, 7)
+    batch = {"text_input": x, "text_lengths": np.array([T_x, 7]), "mel_lengths": np.array([T_spec, 18]), "waveform": wav}
+    draws = {"posterior": rng.standard_normal((B, 32, T_spec)).astype(np.float32),
+             "sdp": rng.standard_normal((B, 2, T_x)).astype(np.float32), "segments": rng.uniform(size=B).astype(np.float32)}
+    out = {"loss_tol": TRAIN_STEP_TOL[0], "grad_tol": TRAIN_STEP_TOL[1]}
+    worst_loss, worst_grad = 0.0, 0.0
+    for idx in (0, 1):
+        res = {}
+        for dev, m in models.items():
+            m.train(True)
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            d = {k: torch.from_numpy(v).to(dev) for k, v in draws.items()}
+            loss, logs = m.loss_fn(b, idx, draws=d)
+            loss.backward()
+            mod = m.disc if idx == 0 else m.net
+            res[dev] = ({k: float(v) for k, v in logs.items()},
+                        {n: p.grad.detach().cpu() for n, p in mod.named_parameters() if p.grad is not None})
+            m.disc.zero_grad(set_to_none=True)
+            m.net.zero_grad(set_to_none=True)
+        (lc, gc), (lg, gg) = res["cpu"], res["cuda"]
+        for k in lc:
+            worst_loss = max(worst_loss, abs(lc[k] - lg[k]) / max(1.0, abs(lc[k])))
+        if set(gc) != set(gg) or not gc:
+            raise AssertionError(f"the card and the CPU gave gradients to different parameters ({idx})")
+        for n in gc:
+            scale = float(gc[n].abs().max())
+            worst_grad = max(worst_grad, (float((gc[n] - gg[n]).abs().max()) - 1e-6) / max(scale, 1e-12))
+        out[f"losses_{idx}"] = {k: [lc[k], lg[k]] for k in lc}
+    out.update(max_loss_rel_err=worst_loss, max_grad_err_of_max=worst_grad)
+    log("train card vs cpu " + json.dumps(out))
+    if not (worst_loss <= TRAIN_STEP_TOL[0] and worst_grad <= TRAIN_STEP_TOL[1]):
+        raise AssertionError(f"the tiny train step on the card disagrees with the CPU: {out}")
+    return out
+
+
+def check_mrf_refuses_gradient() -> dict:
+    """K1 has no backward: an eval()-mode generator on the card whose
+    parameters require grad, or a CUDA input that does, raises; under
+    no_grad the same call runs through the kernel."""
+    import torch
+
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.vocoder.models.hifigan_generator import HifiganGenerator
+
+    gen = HifiganGenerator(in_channels=16, upsample_initial_channel=128, upsample_factors=(2, 2),
+                           upsample_kernel_sizes=(4, 4)).cuda().eval()
+    x = torch.randn(1, 16, 20, device="cuda")
+    raised = []
+    for call in (lambda: gen(x), lambda: hifigan_mrf.mrf_stack(torch.randn(1, 64, 40, device="cuda",
+                                                                            requires_grad=True), gen.mrf_stage(0))):
+        try:
+            call()
+        except RuntimeError as e:
+            raised.append("no backward" in str(e))
+        else:
+            raised.append(False)
+    before = hifigan_mrf.launches
+    with torch.no_grad():
+        y = gen(x)
+    torch.cuda.synchronize()
+    out = {"raised": raised, "no_grad_launches": hifigan_mrf.launches - before, "no_grad_shape": list(y.shape)}
+    log("train mrf guard " + json.dumps(out))
+    if raised != [True, True] or out["no_grad_launches"] != 2 * 18:
+        raise AssertionError(f"mrf_stack's gradient guard: {out}")
+    return out
+
+
+def serve_trained(paths: dict, device: str = "cuda") -> dict:
+    """The trained checkpoint through the port's `Synthesizer` and `/api/tts`
+    (the locked path): one request of one sentence, its K1 launches counted
+    (72 expected), its WAV checked; then the served model's waveform against
+    the same model with the plain MRF version (≤ 1e-3)."""
+    import numpy as np
+    import scipy.io.wavfile
+    import torch
+
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.server.server import TTSHandler, create_server
+    from tpu_tts_torch.vocoder.models import hifigan_generator
+
+    args = argparse.Namespace(**paths, device=device, host="127.0.0.1", port=0)
+    server = create_server(args)
+    if TTSHandler._batcher is not None:
+        TTSHandler._batcher.close()
+        TTSHandler._batcher = None
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        hifigan_mrf.launches = 0
+        t0 = time.perf_counter()
+        url = f"http://127.0.0.1:{server.server_address[1]}/api/tts?text={urllib.parse.quote(TEXTS[1])}"
+        with urllib.request.urlopen(url, timeout=600) as r:
+            status, body = r.status, r.read()
+        latency = time.perf_counter() - t0
+        launches = hifigan_mrf.launches
+        sr, pcm = scipy.io.wavfile.read(io.BytesIO(body))
+        model = TTSHandler.synthesizer.tts_model
+        ids = model.tokenizer.text_to_ids(TEXTS[1])
+        got = model.inference(ids)["model_outputs"]
+        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
+        try:
+            ref = model.inference(ids)["model_outputs"]
+        finally:
+            hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
+        out = {"status": status, "sample_rate": sr, "samples": int(pcm.size), "latency_s": latency,
+               "hifigan_mrf_launches": launches, "max_abs_err_vs_plain": float((got - ref).abs().max()),
+               "rms": float(ref.pow(2).mean().sqrt()), "tol": 1e-3}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    log("train serve " + json.dumps(out))
+    if status != 200 or launches != 72 or not np.isfinite(pcm).all() or pcm.size == 0 \
+            or not torch.isfinite(got).all() or out["max_abs_err_vs_plain"] > 1e-3 or out["rms"] == 0:
+        raise AssertionError(f"the trained checkpoint did not serve through K1: {out}")
+    return out
+
+
+def overfit_one_batch(config, train_samples, device: str = "cuda") -> dict:
+    """OVERFIT_STEPS steps of a fresh model (seed 0, the decoder at unit
+    gain as in `train_phase`) on one fixed batch, each with the same draws
+    and dropout masks: the median mel loss of the last 10 steps must fall
+    below the first step's."""
+    import statistics
+
+    import torch
+
+    from tpu_tts_torch.models.vits import Vits
+    from tpu_tts_torch.train import Trainer, TrainerArgs
+
+    torch.manual_seed(SEED)
+    model = Vits.init_from_config(config, device=device)
+    unit_gain_decoder(model.net.waveform_decoder)
+    trainer = Trainer(TrainerArgs(device=device), model.config, config.output_path, model=model,
+                      train_samples=train_samples)
+    batch = next(iter(model.get_data_loader(trainer.config, {}, is_eval=False, samples=train_samples, verbose=False)))
+    mel, kl = [], []
+    for _ in range(OVERFIT_STEPS):
+        trainer.generator.manual_seed(SEED)
+        torch.manual_seed(SEED)
+        logs = trainer.train_step(batch)
+        mel.append(float(logs["opt1_loss_mel"]))
+        kl.append(float(logs["opt1_loss_kl"]))
+    out = {"steps": len(mel), "loss_mel": mel, "loss_kl_first_last": [kl[0], kl[-1]],
+           "first": mel[0], "median_last10": statistics.median(mel[-10:])}
+    log("train overfit " + json.dumps(out))
+    if not out["median_last10"] < out["first"]:
+        raise AssertionError(f"{OVERFIT_STEPS} steps on one batch did not lower the mel loss: {out}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(tmp: str, device: str = "cuda") -> dict:
+    """The port's training path on the card: the default full-width VITS at
+    batch 32, its decoder redrawn at unit gain (with the default He-normal
+    init, which `tpu_tts` shares, the decoder's tanh saturates within ten
+    steps of training from scratch and its mel loss sticks at ≈ 242), trained through `Trainer.fit` for TRAIN_EPOCHS epochs (2 steps
+    each) on 64 clips written from a seed; then one more epoch uninterrupted
+    and the same epoch resumed from the saved checkpoint by a new model and
+    trainer (`continue_path`), whose first step must equal; a profile of one
+    step; OVERFIT_STEPS steps of a fresh model on one fixed batch with fixed
+    draws, which must lower the mel loss; and the trained checkpoint served
+    through K1."""
+    import math
+
+    import torch
+
+    from tpu_tts_torch.data import load_tts_samples
+    from tpu_tts_torch.models.vits import Vits
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.train import Trainer, TrainerArgs
+    from tpu_tts_torch.train.checkpoint import get_last_checkpoint
+
+    guard = check_mrf_refuses_gradient()
+    tiny = check_train_step_card_vs_cpu()
+    root, out = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+    data = write_ljspeech(root)
+    log("train data " + json.dumps(data))
+    config = train_config(root, out, TRAIN_EPOCHS)
+    train_samples, eval_samples = load_tts_samples(config.datasets, eval_split=True)
+    torch.manual_seed(SEED)
+    model = Vits.init_from_config(config, device=device)
+    unit_gain_decoder(model.net.waveform_decoder)
+    trainer = Trainer(TrainerArgs(device=device), model.config, out, model=model, train_samples=train_samples,
+                      eval_samples=eval_samples)
+    probe = TrainProbe(trainer)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before_gb = torch.cuda.memory_allocated() / 2**30
+        hifigan_mrf.launches = 0
+        t0 = time.perf_counter()
+        trainer.fit()
+        fit_s = time.perf_counter() - t0
+        train_launches = hifigan_mrf.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        steps = list(probe.steps)
+        checkpoint, _ = get_last_checkpoint(out)
+
+        first, last = TrainProbe.losses(steps[0]), TrainProbe.losses(steps[-1])
+        timed = [probe.step_ms(s) for s in steps[1:]]  # the first step warms cuDNN up
+        mean = {k: sum(t[k] for t in timed) / len(timed) for k in timed[0]}
+        wall = sum(s["wall_s"] for s in steps[1:])
+        row = {"steps": len(steps), "epochs": TRAIN_EPOCHS, "batch": TRAIN_BATCH, "fit_s": fit_s, **mean,
+               "clips_per_s": sum(s["clips"] for s in steps[1:]) / wall,
+               "audio_s_per_s": sum(s["audio_s"] for s in steps[1:]) / wall,
+               "mas_round_trip_ms": sum(probe.mas_ms) / len(probe.mas_ms), "mas_calls": len(probe.mas_ms),
+               "peak_allocated_gb": peak_gb, "allocated_before_gb": before_gb, "hifigan_mrf_launches": train_launches,
+               "params": sum(p.numel() for p in model.net.parameters()) + sum(p.numel() for p in model.disc.parameters())}
+        log("train steps " + json.dumps(row))
+        log("train losses " + json.dumps({"first": first, "last": last}))
+        bad = [k for s in steps for k, v in TrainProbe.losses(s).items() if not math.isfinite(v)]
+        if bad or probe.zero_grads is None or probe.zero_grads:
+            raise AssertionError(f"non-finite losses {bad[:5]} or parameters without a gradient "
+                                 f"{(probe.zero_grads or ['(none checked)'])[:8]}")
+        if train_launches != 0:
+            raise AssertionError(f"training launched K1 {train_launches} times; it has no backward")
+
+        # one more epoch, uninterrupted, then the same epoch resumed from the checkpoint
+        n0 = len(probe.steps)
+        trainer.config.epochs = TRAIN_EPOCHS + 1
+        trainer.fit()
+        uninterrupted = TrainProbe.losses(probe.steps[n0])
+        model_b = Vits.init_from_config(train_config(root, out, TRAIN_EPOCHS + 1), device=device)
+        trainer_b = Trainer(TrainerArgs(device=device, continue_path=checkpoint), model_b.config,
+                            os.path.join(tmp, "resumed"), model=model_b, train_samples=train_samples,
+                            eval_samples=eval_samples)
+        probe_b = TrainProbe(trainer_b)
+        try:
+            trainer_b.fit()
+        finally:
+            probe_b.close()
+        resumed = TrainProbe.losses(probe_b.steps[0])
+        rel = max(abs(resumed[k] - uninterrupted[k]) / max(1.0, abs(uninterrupted[k])) for k in uninterrupted)
+        log("train resume " + json.dumps({"checkpoint": os.path.basename(checkpoint), "step": trainer_b.total_steps_done,
+                                          "max_rel_err": rel, "tol": RESUME_TOL, "uninterrupted": uninterrupted,
+                                          "resumed": resumed}))
+        if set(resumed) != set(uninterrupted) or not rel <= RESUME_TOL:
+            raise AssertionError(f"the resumed run's next step differs from the uninterrupted run's: {rel}")
+        del trainer_b, model_b, probe_b
+        serve_path = get_last_checkpoint(out)[0]
+
+        profile_batch = next(iter(model.get_data_loader(trainer.config, {}, is_eval=False, samples=train_samples,
+                                                         verbose=False)))
+        profile_call(lambda: trainer.train_step(profile_batch), {"model": "vits", "call": "one training step (D then G)",
+                                                                "batch": TRAIN_BATCH}, top=10)
+    finally:
+        probe.close()
+    del trainer, model, profile_batch
+    torch.cuda.empty_cache()
+    overfit = overfit_one_batch(train_config(root, os.path.join(tmp, "overfit"), 1), train_samples, device)
+    served = serve_trained({"model_path": serve_path, "config_path": os.path.join(out, "config.json")}, device)
+    return {**row, "guard": guard, "tiny": tiny, "resume_max_rel_err": rel, "overfit": overfit, "served": served}
+
+
 def main() -> int:
     import torch
 
@@ -1478,6 +1959,9 @@ def main() -> int:
         if xtts["launches_per_chunk"] != 72 or xtts["launches_per_emission"] != 72:
             raise AssertionError(f"the XTTS decoder took {xtts['launches_per_chunk']} K1 launches a chunk and "
                                  f"{xtts['launches_per_emission']} a pool emission, not 72")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        train = train_phase(tmp)
 
     f32 = [r for r in rows if r["dtype"] == "float32"]
     served = next(r for r in k2_rows if r["mode"] == "sampled")  # the mode the vocoder serves
@@ -1509,6 +1993,10 @@ def main() -> int:
         "xtts_launches_per_chunk": xtts["launches_per_chunk"],
         "xtts_launches_per_emission": xtts["launches_per_emission"],
         "xtts_decoder_b8_max_abs_err": xtts["checks"]["decoder_b8_max_abs_err"],
+        # training runs the plain ResBlock1 modules (0 launches); the trained checkpoint serves through K1
+        "train_launches": train["hifigan_mrf_launches"],
+        "train_serve_launches": train["served"]["hifigan_mrf_launches"],
+        "train_serve_max_abs_err": train["served"]["max_abs_err_vs_plain"],
     }, {
         "name": "wavernn_sampler",
         "route": "cuda",

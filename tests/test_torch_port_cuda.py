@@ -486,3 +486,84 @@ def test_xtts_pool_greedy_codes_score_best_teacher_forced():
             logits = model.net.gpt(cond.cuda(), text[None].cuda(), prev)["mel_logits"][0]
         gap = logits.max(dim=-1).values - logits.gather(1, codes.cuda()[:, None])[:, 0]
         assert float(gap.max()) <= 1e-4
+
+
+def _tiny_train_pair():
+    """A tiny VITS set up for training on the CPU and on the card with the
+    same seeded weights (weight-norm gains ≈ 1, the rest ~N(0, 0.1²), so the
+    zero-initialised projections do work), no dropout."""
+    from tpu_tts_torch.configs.vits_config import VitsArgs, VitsAudioConfig, VitsConfig
+    from tpu_tts_torch.models.vits import Vits
+
+    args = VitsArgs(num_chars=40, hidden_channels=32, hidden_channels_ffn_text_encoder=48, num_layers_text_encoder=2,
+                    num_layers_flow=2, out_channels=33, num_layers_posterior_encoder=1, spec_segment_size=4,
+                    upsample_rates_decoder=[4, 4], upsample_kernel_sizes_decoder=[8, 8],
+                    upsample_initial_channel_decoder=32, resblock_kernel_sizes_decoder=[3, 7],
+                    resblock_dilation_sizes_decoder=[[1, 3], [1, 3]], periods_multi_period_discriminator=[2],
+                    dropout_p_text_encoder=0.0, dropout_p_duration_predictor=0.0)
+    config = VitsConfig(model_args=args, audio=VitsAudioConfig(fft_size=64, win_length=64, hop_length=16, num_mels=20))
+    cpu, card = Vits(config, device="cpu"), Vits(config, device="cuda")
+    cpu.init_training()
+    card.init_training()
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, p in list(cpu.net.named_parameters()) + list(cpu.disc.named_parameters()):
+            p.copy_(1 + 0.1 * (2 * torch.rand(p.shape, generator=gen) - 1) if name.endswith(("original0", "gamma"))
+                    else 0.1 * torch.randn(p.shape, generator=gen))
+    card.load_training_state(cpu.training_state_dict(), strict=True)
+    wav = torch.zeros(2, 1, 24 * 16)
+    wav[0, 0] = 0.4 * torch.sin(0.2 * torch.arange(24 * 16.0))
+    wav[1, 0, : 18 * 16] = 0.3 * torch.sin(0.3 * torch.arange(18 * 16.0))
+    batch = {"text_input": torch.randint(1, 40, (2, 11), generator=gen), "text_lengths": torch.tensor([11, 7]),
+             "mel_lengths": torch.tensor([24, 18]), "waveform": wav + 0.05 * torch.randn(wav.shape, generator=gen)}
+    draws = {"posterior": torch.randn(2, 32, 24, generator=gen), "sdp": torch.randn(2, 2, 11, generator=gen),
+             "segments": torch.rand(2, generator=gen)}
+    return cpu, card, batch, draws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer_idx", [0, 1])
+def test_train_step_on_card_matches_cpu(optimizer_idx):
+    """One D step (0) or G step (1) of a tiny VITS on the card against the
+    same step on the CPU, same weights, batch and draws: losses within 1e-4
+    relative, each gradient within 1e-3 of its tensor's largest |gradient|
+    plus 1e-6 (float32 with TF32 off; cuDNN sums in another order)."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, card, batch, draws = _tiny_train_pair()
+    results = []
+    for m in (cpu, card):
+        m.train(True)
+        b = {k: v.to(m.device) for k, v in batch.items()}
+        loss, logs = m.loss_fn(b, optimizer_idx, draws={k: v.to(m.device) for k, v in draws.items()})
+        loss.backward()
+        mod = m.disc if optimizer_idx == 0 else m.net
+        results.append(({k: float(v) for k, v in logs.items()},
+                        {n: p.grad.cpu() for n, p in mod.named_parameters() if p.grad is not None}))
+    (lc, gc), (lg, gg) = results
+    for k in lc:
+        assert abs(lc[k] - lg[k]) <= 1e-4 * max(1.0, abs(lc[k])), k
+    assert set(gc) == set(gg) and gc
+    for n in gc:
+        assert float((gc[n] - gg[n]).abs().max()) <= 1e-3 * float(gc[n].abs().max()) + 1e-6, n
+
+
+@pytest.mark.cuda
+def test_mrf_stack_refuses_a_gradient_on_cuda():
+    """K1 has no backward: a CUDA input requiring grad, or an eval() generator
+    whose parameters require it, raises; under no_grad the kernel runs (18
+    launches a stage)."""
+    from tpu_tts_torch.vocoder.models.hifigan_generator import HifiganGenerator
+
+    _need_cuda()
+    gen = HifiganGenerator(in_channels=16, upsample_initial_channel=128, upsample_factors=(2, 2),
+                           upsample_kernel_sizes=(4, 4)).cuda().eval()
+    x = torch.randn(1, 16, 20, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        gen(x)
+    with pytest.raises(RuntimeError, match="no backward"):
+        hifigan_mrf.mrf_stack(torch.randn(1, 64, 40, device="cuda", requires_grad=True), gen.mrf_stage(0))
+    before = hifigan_mrf.launches
+    with torch.no_grad():
+        assert gen(x).shape == (1, 1, 80)
+    assert hifigan_mrf.launches - before == 2 * 18

@@ -89,7 +89,8 @@ def port_model():
     from tpu_tts_torch.models.vits_convert import params_from_flax
 
     model = Vits(port_config(), device="cpu")
-    model.net.load_state_dict(params_from_flax(jax_model().params["generator"]), strict=True)
+    sd = params_from_flax(jax_model().params["generator"])
+    model.net.load_state_dict({k: v for k, v in sd.items() if not k.startswith("posterior_encoder.")}, strict=True)
     return model
 
 

@@ -334,6 +334,22 @@ def trim_silence(
 # Wav I/O (stdlib/scipy; Coqui uses soundfile + librosa)
 # ---------------------------------------------------------------------------
 
+def volume_norm(*, x: np.ndarray = None, coef: float = 0.95, **kwargs) -> np.ndarray:
+    return x / abs(x).max() * coef
+
+
+def rms_norm(*, wav: np.ndarray = None, db_level: float = -27.0, **kwargs) -> np.ndarray:
+    r = 10 ** (db_level / 20)
+    a = np.sqrt((len(wav) * (r**2)) / np.sum(wav**2))
+    return wav * a
+
+
+def rms_volume_norm(*, x: np.ndarray, db_level: float = -27.0, **kwargs) -> np.ndarray:
+    if not -99 <= db_level <= 0:
+        raise ValueError(" [!] db_level should be between -99 and 0")
+    return rms_norm(wav=x, db_level=db_level)
+
+
 def resample_wav(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     if orig_sr == target_sr:
         return x

@@ -3,13 +3,14 @@
 Counterpart of `tpu_tts/audio/processor.py` (`StandardScaler`:17,
 `AudioProcessor`:42, `normalize`/`denormalize`:158-198, `load_stats`/
 `setup_scaler`:201-222, `inv_spectrogram`/`inv_melspectrogram`:259-282,
-`find_endpoint`/`trim_silence`:308-326, `save_wav`:345), which follows Coqui
-TTS `TTS/utils/audio/processor.py`. Built on the port's
-`numpy_transforms`; everything here runs on the host in numpy, as in the
-JAX package. Griffin-Lim takes an optional `seed` (an int or a
-`np.random.Generator`) for its first phases; the JAX processor never
-passes one. The f0, energy and quantisation helpers belong to training and
-come with it (ROADMAP.md).
+`melspectrogram`:249, `find_endpoint`/`trim_silence`
+:308-326, `sound_norm`/`rms_volume_norm`:328-335, `load_wav`:337,
+`save_wav`:345), which follows Coqui TTS `TTS/utils/audio/processor.py`.
+Built on the port's `numpy_transforms`; everything here runs on the host in
+numpy, as in the JAX package. Griffin-Lim takes an optional `seed` (an int
+or a `np.random.Generator`) for its first phases; the JAX processor never
+passes one. The f0, energy and quantisation helpers come with the models
+that read them (ROADMAP.md, M8 and M9).
 """
 
 from typing import Dict, Optional, Tuple, Union
@@ -240,7 +241,19 @@ class AudioProcessor:
         return nt.griffin_lim(spec=S, num_iter=self.griffin_lim_iters, seed=seed, hop_length=self.hop_length,
                               win_length=self.win_length, fft_size=self.fft_size, pad_mode=self.stft_pad_mode)
 
-    # ---- silence ---------------------------------------------------------------------
+    # ---- mel spectrogram (the training data path) ------------------------------------
+    def melspectrogram(self, y: np.ndarray) -> np.ndarray:
+        """Waveform → normalised mel spectrogram `[num_mels, T]`."""
+        if self.preemphasis != 0:
+            y = nt.preemphasis(x=y, coef=self.preemphasis)
+        D = nt.stft(y=y, fft_size=self.fft_size, hop_length=self.hop_length, win_length=self.win_length,
+                    pad_mode=self.stft_pad_mode)
+        S = nt.spec_to_mel(spec=np.abs(D), mel_basis=self.mel_basis)
+        if self.do_amp_to_db_mel:
+            S = nt.amp_to_db(x=S, gain=self.spec_gain, base=self.base)
+        return self.normalize(S).astype(np.float32)
+
+    # ---- silence and volume ----------------------------------------------------------
     def find_endpoint(self, wav: np.ndarray, min_silence_sec=0.8) -> int:
         return nt.find_endpoint(wav=wav, trim_db=self.trim_db, sample_rate=self.sample_rate,
                                 min_silence_sec=min_silence_sec, gain=self.spec_gain, base=self.base)
@@ -248,6 +261,32 @@ class AudioProcessor:
     def trim_silence(self, wav: np.ndarray) -> np.ndarray:
         return nt.trim_silence(wav=wav, sample_rate=self.sample_rate, trim_db=self.trim_db,
                                win_length=self.win_length, hop_length=self.hop_length)
+
+    @staticmethod
+    def sound_norm(x: np.ndarray) -> np.ndarray:
+        return nt.volume_norm(x=x)
+
+    def rms_volume_norm(self, x: np.ndarray, db_level: Optional[float] = None) -> np.ndarray:
+        return nt.rms_volume_norm(x=x, db_level=self.db_level if db_level is None else db_level)
+
+    # ---- I/O -------------------------------------------------------------------------
+    def load_wav(self, filename: str, sr: Optional[int] = None) -> np.ndarray:
+        """A wav file as float32, resampled to `sr` or (with `resample`) the
+        configured rate, then trimmed and normalised as configured."""
+        if sr is not None:
+            x = nt.load_wav(filename=filename, sample_rate=sr, resample=True)
+        else:
+            x = nt.load_wav(filename=filename, sample_rate=self.sample_rate, resample=self.resample)
+        if self.do_trim_silence:
+            try:
+                x = self.trim_silence(x)
+            except ValueError:
+                print(f" [!] File cannot be trimmed for silence - {filename}")
+        if self.do_sound_norm:
+            x = self.sound_norm(x)
+        if self.do_rms_norm:
+            x = self.rms_volume_norm(x, self.db_level)
+        return x
 
     def save_wav(self, wav: np.ndarray, path: str, sr: Optional[int] = None, pipe_out=None) -> None:
         nt.save_wav(wav=np.asarray(wav, dtype=np.float32), path=path, sample_rate=sr if sr else self.sample_rate,

@@ -2,7 +2,11 @@
 
 Counterpart of `tpu_tts/audio/jax_transforms.py` (`wav_to_spec`:281,
 `spec_to_mel`:303, `wav_to_mel`:318): VITS-semantics log-mel, the
-conditioning mel of XTTS's `get_conditioning_latents`. With `center=False`
+conditioning mel of XTTS's `get_conditioning_latents` and VITS training's
+spectrograms and mel loss (differentiable). The STFT is `torch.stft` (an
+FFT) on JAX's frames, where JAX multiplies the frames by windowed DFT bases
+(`_dft_bases`:38, `frame_signal`:84); the two agree within 1e-5 at the
+test widths (`tests/test_torch_port_train.py`). With `center=False`
 the signal is reflect-padded by `(fft_size - hop_length) / 2` on each side,
 framed without centring, and the magnitude is `sqrt(re² + im² + 1e-6)`;
 the mel basis is the port's librosa-compatible one

@@ -2,7 +2,9 @@
 
 Counterparts of `tpu_tts/layers/common.py` (`Conv1d`:19, `WNConv1d`:46,
 `LayerNorm`:99, `ResidualConv1dLayerNormBlock`:160, `WN`:266,
-`DurationPredictor`:312), at inference (dropout off). Parameter names follow the Coqui state dict:
+`DurationPredictor`:312). Dropout (`dropout_p` of `WN` and the
+`DurationPredictor`) acts in `train()` mode only, as the JAX modules' under
+`train=True`. Parameter names follow the Coqui state dict:
 a weight-normalised conv stores `parametrizations.weight.original0` (g, one
 norm per dim-0 slice) and `parametrizations.weight.original1` (v), as
 `torch.nn.utils.parametrizations.weight_norm` does.
@@ -107,9 +109,10 @@ class WN(nn.Module):
     :283-297)."""
 
     def __init__(self, hidden_channels: int, kernel_size: int, dilation_rate: int, num_layers: int,
-                 cond_channels: int = 0):
+                 cond_channels: int = 0, dropout_p: float = 0.0):
         super().__init__()
         self.hidden_channels = hidden_channels
+        self.drop = nn.Dropout(dropout_p)
         self.num_layers = num_layers
         self.in_layers = nn.ModuleList(
             WNConv1d(hidden_channels, 2 * hidden_channels, kernel_size, dilation=dilation_rate**i)
@@ -127,7 +130,7 @@ class WN(nn.Module):
         output = torch.zeros_like(x)
         g_all = self.cond_layer(g) if g is not None else None
         for i in range(self.num_layers):
-            z = self.in_layers[i](x)
+            z = self.drop(self.in_layers[i](x))
             if g_all is not None:
                 z = z + g_all[:, i * 2 * h : (i + 1) * 2 * h]
             acts = torch.tanh(z[:, :h]) * torch.sigmoid(z[:, h:])
@@ -165,8 +168,9 @@ class DurationPredictor(nn.Module):
     language embedding (`[B, C, 1]`) are added to the input first."""
 
     def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int, cond_channels: int = 0,
-                 language_emb_dim: int = 0):
+                 language_emb_dim: int = 0, dropout_p: float = 0.0):
         super().__init__()
+        self.drop = nn.Dropout(dropout_p)
         self.conv_1 = Conv1d(in_channels, hidden_channels, kernel_size)
         self.norm_1 = LayerNorm(hidden_channels)
         self.conv_2 = Conv1d(hidden_channels, hidden_channels, kernel_size)
@@ -182,6 +186,6 @@ class DurationPredictor(nn.Module):
             x = x + self.cond(g)
         if lang_emb is not None:
             x = x + self.cond_lang(lang_emb)
-        x = self.norm_1(torch.relu(self.conv_1(x * x_mask)))
-        x = self.norm_2(torch.relu(self.conv_2(x * x_mask)))
+        x = self.drop(self.norm_1(torch.relu(self.conv_1(x * x_mask))))
+        x = self.drop(self.norm_2(torch.relu(self.conv_2(x * x_mask))))
         return self.proj(x * x_mask) * x_mask

@@ -1,12 +1,16 @@
-"""VITS building blocks of the inference path, channels-first.
+"""VITS building blocks, channels-first.
 
 Counterparts of `tpu_tts/layers/vits.py`: the rational-quadratic spline
 (`rational_quadratic_spline`:38, `piecewise_rational_quadratic_transform`
 :128), the stochastic duration predictor's modules (`DilatedDepthSeparable
 Conv`:166, `ElementwiseAffine`:200, `ConvFlow`:214, `StochasticDuration
-Predictor`:254), `VitsTextEncoder`:339, `ResidualCouplingLayer`:418 and
-`ResidualCouplingBlocks`:462. Only the reverse (sampling) direction of the
-flows is here; the forward direction belongs to training.
+Predictor`:254), `VitsTextEncoder`:339, `VitsPosteriorEncoder`:384,
+`ResidualCouplingLayer`:418, `ResidualCouplingBlocks`:462,
+`paired_disc_apply`:502 and `VitsDiscriminator`:519. The flows run in both
+directions: `forward` (training: the posterior's z through the flow, the
+SDP's negative log-likelihood, each with its log-determinant) and `reverse`
+(sampling). Dropout acts in `train()` mode only, as the JAX modules' under
+`train=True`.
 
 The spline's public functions keep the JAX layout: the bin dimension last.
 """
@@ -142,9 +146,10 @@ def piecewise_rational_quadratic_transform(
 class DilatedDepthSeparableConv(nn.Module):
     """[depthwise dilated conv → LN → gelu → 1×1 → LN → gelu] residual stack."""
 
-    def __init__(self, channels: int, kernel_size: int, num_layers: int):
+    def __init__(self, channels: int, kernel_size: int, num_layers: int, dropout_p: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
+        self.drop = nn.Dropout(dropout_p)
         self.convs_sep = nn.ModuleList()
         for i in range(num_layers):
             dilation = kernel_size**i
@@ -162,7 +167,7 @@ class DilatedDepthSeparableConv(nn.Module):
         for i in range(self.num_layers):
             y = F.gelu(self.norms_1[i](self.convs_sep[i](x * x_mask)))
             y = F.gelu(self.norms_2[i](self.convs_1x1[i](y)))
-            x = x + y
+            x = x + self.drop(y)
         return x * x_mask
 
 
@@ -171,6 +176,11 @@ class ElementwiseAffine(nn.Module):
         super().__init__()
         self.translation = nn.Parameter(torch.zeros(channels, 1))
         self.log_scale = nn.Parameter(torch.zeros(channels, 1))
+
+    def forward(self, x, x_mask, g=None):
+        """→ (y, logdet `[B]`)."""
+        y = (x * torch.exp(self.log_scale) + self.translation) * x_mask
+        return y, torch.sum(self.log_scale * x_mask, dim=(1, 2))
 
     def reverse(self, x, x_mask, g=None):
         return (x - self.translation) * torch.exp(-self.log_scale) * x_mask
@@ -192,7 +202,7 @@ class ConvFlow(nn.Module):
         nn.init.zeros_(self.proj.weight)
         nn.init.zeros_(self.proj.bias)
 
-    def reverse(self, x, x_mask, g=None):
+    def _transform(self, x, x_mask, g, inverse: bool):
         x0, x1 = x[:, : self.half], x[:, self.half :]
         h = self.convs(self.pre(x0), x_mask, g=g)
         h = self.proj(h) * x_mask
@@ -202,28 +212,38 @@ class ConvFlow(nn.Module):
         uw = h[..., : self.num_bins] * scale
         uh = h[..., self.num_bins : 2 * self.num_bins] * scale
         ud = h[..., 2 * self.num_bins :]
-        x1, _ = piecewise_rational_quadratic_transform(x1, uw, uh, ud, inverse=True, tail_bound=self.tail_bound)
-        return torch.cat([x0, x1], dim=1) * x_mask
+        x1, logabsdet = piecewise_rational_quadratic_transform(x1, uw, uh, ud, inverse=inverse,
+                                                               tail_bound=self.tail_bound)
+        return torch.cat([x0, x1], dim=1) * x_mask, logabsdet
+
+    def forward(self, x, x_mask, g=None):
+        """→ (y, logdet `[B]`)."""
+        y, logabsdet = self._transform(x, x_mask, g, inverse=False)
+        return y, torch.sum(logabsdet * x_mask, dim=(1, 2))
+
+    def reverse(self, x, x_mask, g=None):
+        return self._transform(x, x_mask, g, inverse=True)[0]
 
 
 class StochasticDurationPredictor(nn.Module):
-    """Spline-flow duration predictor. Holds the posterior flows too, so a
-    Coqui state dict loads by name; only the reverse direction runs here.
-    With `cond_channels` / `language_emb_dim`, 1×1 projections of g and the
+    """Spline-flow duration predictor. `forward` is training's negative
+    log-likelihood of the aligned durations through the posterior flows
+    (`post_*`) and the main flows; `reverse` samples log durations. With
+    `cond_channels` / `language_emb_dim`, 1×1 projections of g and the
     language embedding are added after `pre` (`tpu_tts/layers/vits.py`
     :263-288)."""
 
     def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int, num_flows: int = 4,
-                 cond_channels: int = 0, language_emb_dim: int = 0):
+                 cond_channels: int = 0, language_emb_dim: int = 0, dropout_p: float = 0.0):
         super().__init__()
         self.pre = nn.Conv1d(in_channels, hidden_channels, 1)
-        self.convs = DilatedDepthSeparableConv(hidden_channels, kernel_size, 3)
+        self.convs = DilatedDepthSeparableConv(hidden_channels, kernel_size, 3, dropout_p)
         self.proj = nn.Conv1d(hidden_channels, hidden_channels, 1)
         self.flows = nn.ModuleList(
             [ElementwiseAffine(2)] + [ConvFlow(2, hidden_channels, kernel_size, 3) for _ in range(num_flows)]
         )
         self.post_pre = nn.Conv1d(1, hidden_channels, 1)
-        self.post_convs = DilatedDepthSeparableConv(hidden_channels, kernel_size, 3)
+        self.post_convs = DilatedDepthSeparableConv(hidden_channels, kernel_size, 3, dropout_p)
         self.post_proj = nn.Conv1d(hidden_channels, hidden_channels, 1)
         self.post_flows = nn.ModuleList(
             [ElementwiseAffine(2)] + [ConvFlow(2, hidden_channels, kernel_size, 3) for _ in range(num_flows)]
@@ -233,16 +253,48 @@ class StochasticDurationPredictor(nn.Module):
         if language_emb_dim:
             self.cond_lang = nn.Conv1d(language_emb_dim, hidden_channels, 1)
 
-    def reverse(self, x, x_mask, noise: torch.Tensor, noise_scale: float = 1.0, g=None, lang_emb=None):
-        """x `[B, C, T]`, noise `[B, 2, T]` standard normal, g and lang_emb
-        `[B, C_*, 1]` or None → logw `[B, 1, T]`."""
+    def _condition(self, x, x_mask, g, lang_emb):
         x = self.pre(x)
         if g is not None:
             x = x + self.cond(g)
         if lang_emb is not None:
             x = x + self.cond_lang(lang_emb)
         x = self.convs(x, x_mask)
-        x = self.proj(x) * x_mask
+        return self.proj(x) * x_mask
+
+    def forward(self, x, x_mask, dr, noise: torch.Tensor, g=None, lang_emb=None):
+        """Negative log-likelihood `[B]` of the durations dr `[B, 1, T]`
+        (MAS's frame counts) given x `[B, C, T]`; noise `[B, 2, T]` is the
+        posterior's standard-normal draw."""
+        x = self._condition(x, x_mask, g, lang_emb)
+        h = self.post_proj(self.post_convs(self.post_pre(dr), x_mask)) * x_mask
+        noise = noise * x_mask
+        z_q, logdet_tot_q = noise, 0.0
+        for idx, flow in enumerate(self.post_flows):
+            z_q, logdet_q = flow(z_q, x_mask, g=x + h)
+            logdet_tot_q = logdet_tot_q + logdet_q
+            if idx > 0:
+                z_q = torch.flip(z_q, [1])
+        z_u, z_v = z_q[:, :1], z_q[:, 1:]
+        u = torch.sigmoid(z_u) * x_mask
+        z0 = (dr - u) * x_mask
+        logdet_tot_q = logdet_tot_q + torch.sum((F.logsigmoid(z_u) + F.logsigmoid(-z_u)) * x_mask, dim=(1, 2))
+        nll_posterior = torch.sum(-0.5 * (math.log(2 * math.pi) + noise**2) * x_mask, dim=(1, 2)) - logdet_tot_q
+        z0 = torch.log(torch.clamp(z0, min=1e-5)) * x_mask
+        logdet_tot = torch.sum(-z0, dim=(1, 2))
+        z = torch.cat([z0, z_v], dim=1)
+        for idx, flow in enumerate(self.flows):
+            z, logdet = flow(z, x_mask, g=x)
+            logdet_tot = logdet_tot + logdet
+            if idx > 0:
+                z = torch.flip(z, [1])
+        nll_flow = torch.sum(0.5 * (math.log(2 * math.pi) + z**2) * x_mask, dim=(1, 2)) - logdet_tot
+        return nll_flow + nll_posterior
+
+    def reverse(self, x, x_mask, noise: torch.Tensor, noise_scale: float = 1.0, g=None, lang_emb=None):
+        """x `[B, C, T]`, noise `[B, 2, T]` standard normal, g and lang_emb
+        `[B, C_*, 1]` or None → logw `[B, 1, T]`."""
+        x = self._condition(x, x_mask, g, lang_emb)
         flows = list(reversed(self.flows))
         flows = flows[:-2] + [flows[-1]]  # drop the unused extra flow
         z = noise * noise_scale
@@ -259,7 +311,8 @@ class VitsTextEncoder(nn.Module):
     channels (`tpu_tts/layers/vits.py`:350-367)."""
 
     def __init__(self, n_vocab: int, out_channels: int, hidden_channels: int, hidden_channels_ffn: int,
-                 num_heads: int, num_layers: int, kernel_size: int, language_emb_dim: int = 0):
+                 num_heads: int, num_layers: int, kernel_size: int, language_emb_dim: int = 0,
+                 dropout_p: float = 0.0):
         super().__init__()
         self.hidden_channels = hidden_channels
         self.out_channels = out_channels
@@ -267,7 +320,8 @@ class VitsTextEncoder(nn.Module):
         nn.init.normal_(self.emb.weight, 0.0, hidden_channels**-0.5)
         width = hidden_channels + language_emb_dim
         self.encoder = RelativePositionTransformer(
-            width, hidden_channels_ffn, num_heads, num_layers, kernel_size, rel_attn_window_size=4
+            width, hidden_channels_ffn, num_heads, num_layers, kernel_size, rel_attn_window_size=4,
+            dropout_p=dropout_p
         )
         self.proj = nn.Conv1d(width, out_channels * 2, 1)
 
@@ -283,6 +337,30 @@ class VitsTextEncoder(nn.Module):
         return h, m, logs, x_mask
 
 
+class VitsPosteriorEncoder(nn.Module):
+    """Linear spectrogram → (z, m_q, logs_q, y_mask): 1×1 `pre`, a WN stack
+    (conditioned on g `[B, C_g, 1]` when `cond_channels`), 1×1 `proj` to the
+    posterior's mean and log-scale, and the sample z = m + ε·exp(logs)."""
+
+    def __init__(self, in_channels: int, out_channels: int, hidden_channels: int, kernel_size: int,
+                 dilation_rate: int, num_layers: int, cond_channels: int = 0):
+        super().__init__()
+        self.out_channels = out_channels
+        self.pre = nn.Conv1d(in_channels, hidden_channels, 1)
+        self.enc = WN(hidden_channels, kernel_size, dilation_rate, num_layers, cond_channels)
+        self.proj = nn.Conv1d(hidden_channels, out_channels * 2, 1)
+
+    def forward(self, x, x_lengths, noise: torch.Tensor, g=None):
+        """x `[B, C_spec, T]`, x_lengths `[B]`, noise `[B, C_out, T]` the
+        standard-normal ε."""
+        x_mask = sequence_mask(x_lengths, x.shape[2]).to(x.dtype)[:, None, :]
+        h = self.enc(self.pre(x) * x_mask, x_mask, g=g)
+        stats = self.proj(h) * x_mask
+        m, logs = torch.split(stats, self.out_channels, dim=1)
+        z = (m + noise * torch.exp(logs)) * x_mask
+        return z, m, logs, x_mask
+
+
 class ResidualCouplingLayer(nn.Module):
     """Mean-only affine coupling with a WN core."""
 
@@ -296,11 +374,17 @@ class ResidualCouplingLayer(nn.Module):
         nn.init.zeros_(self.post.weight)
         nn.init.zeros_(self.post.bias)
 
+    def _mean(self, x0, x_mask, g):
+        return self.post(self.enc(self.pre(x0) * x_mask, x_mask, g=g)) * x_mask
+
+    def forward(self, x, x_mask, g=None):
+        """Mean-only, so its log-determinant is 0."""
+        x0, x1 = x[:, : self.half], x[:, self.half :]
+        return torch.cat([x0, (self._mean(x0, x_mask, g) + x1) * x_mask], dim=1)
+
     def reverse(self, x, x_mask, g=None):
         x0, x1 = x[:, : self.half], x[:, self.half :]
-        h = self.enc(self.pre(x0) * x_mask, x_mask, g=g)
-        m = self.post(h) * x_mask
-        return torch.cat([x0, (x1 - m) * x_mask], dim=1)
+        return torch.cat([x0, (x1 - self._mean(x0, x_mask, g)) * x_mask], dim=1)
 
 
 class ResidualCouplingBlocks(nn.Module):
@@ -315,7 +399,43 @@ class ResidualCouplingBlocks(nn.Module):
             for _ in range(num_flows)
         )
 
+    def forward(self, x, x_mask, g=None):
+        for layer in self.flows:
+            x = torch.flip(layer(x, x_mask, g=g), [1])
+        return x
+
     def reverse(self, x, x_mask, g=None):
         for layer in reversed(self.flows):
             x = layer.reverse(torch.flip(x, [1]), x_mask, g=g)
         return x
+
+
+def paired_disc_apply(disc, real, fake):
+    """One discriminator pass over [real; fake] stacked on the batch axis,
+    split back into (scores_real, scores_fake, feats_real, feats_fake); each
+    row's outputs equal a pass of its own."""
+    B = real.shape[0]
+    scores, feats = disc(torch.cat([real, fake], dim=0))
+    return ([s[:B] for s in scores], [s[B:] for s in scores], [[f[:B] for f in fl] for fl in feats],
+            [[f[B:] for f in fl] for fl in feats])
+
+
+class VitsDiscriminator(nn.Module):
+    """The scale discriminator (`nets.0`, VITS's slim schedule) and one period
+    discriminator per period (`nets.1…`), Coqui's module names. x `[B, 1, T]`
+    → (scores, features), one entry per discriminator."""
+
+    def __init__(self, periods=(2, 3, 5, 7, 11), use_spectral_norm: bool = False):
+        super().__init__()
+        from tpu_tts_torch.vocoder.models.hifigan_discriminator import DiscriminatorP, DiscriminatorS
+
+        self.nets = nn.ModuleList([DiscriminatorS(use_spectral_norm=use_spectral_norm)])
+        self.nets.extend(DiscriminatorP(p, use_spectral_norm=use_spectral_norm) for p in periods)
+
+    def forward(self, x):
+        scores, feats = [], []
+        for net in self.nets:
+            score, feat = net(x)
+            scores.append(score)
+            feats.append(feat)
+        return scores, feats

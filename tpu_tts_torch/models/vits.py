@@ -1,8 +1,11 @@
-"""VITS inference, channels-first inside, on the port's modules.
+"""VITS, channels-first inside, on the port's modules: inference and training.
 
 Counterpart of `tpu_tts/models/vits.py`: `VitsNet` (`setup`:73,
-`_cond_embeddings`:156, `infer_durations`:303, `infer_decode`:326) and
-`Vits.inference`:614 with its two-stage bucketing. Stage 1 runs the text
+`_cond_embeddings`:156, `_duration_loss_and_attn`:167, `__call__`:197 as
+`forward`, `infer_durations`:303, `infer_decode`:326) and `Vits`
+(`_spec_from_wav`/`_mel_from_spec`/`_mel_from_wav`:441-464, `_forward_g`:466,
+`loss_fn`:499, `get_optimizer`:593, `inference`:614 with its two-stage
+bucketing, `get_data_loader`:768). Stage 1 runs the text
 encoder and the duration predictor (stochastic, or deterministic with
 `use_sdp=False`); the host reads the longest mel length and picks a decode
 bucket; stage 2 expands the prior by the durations, runs the reverse flow
@@ -17,9 +20,21 @@ multilingual models add a language embedding (`emb_l`, `language_ids`) to
 the text encoder and the duration predictor. With `encoder_sample_rate`
 the flow's output is interpolated ×`interp_factor` in time before the
 decoder, and `y_lengths` counts frames at the decoder's rate.
+
+Training (`Vits.init_training`, then `loss_fn` per optimizer: D = 0, G = 1)
+adds the posterior encoder to the net (`posterior_encoder.*`) and the
+discriminator beside it (`disc.*`), Coqui's state-dict names. A training
+forward takes three draws: the posterior's ε, the SDP posterior's noise and
+the segment offsets' uniforms. They come from the `torch.Generator` it is
+given, or ready-made in `draws` (the tests hand it JAX's). Dropout draws from
+torch's default generator. MAS runs on the host (`ops/mas.py`). The D step's
+generator forward runs without gradients; the G step's discriminator passes
+run with its parameters frozen, the real half without gradients.
 """
 
-from typing import Dict
+import contextlib
+import math
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -27,10 +42,20 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpu_tts_torch.audio import AudioProcessor
+from tpu_tts_torch.audio import torch_transforms as tt
 from tpu_tts_torch.layers.common import DurationPredictor
-from tpu_tts_torch.layers.vits import ResidualCouplingBlocks, StochasticDurationPredictor, VitsTextEncoder
+from tpu_tts_torch.layers.losses import discriminator_loss, feature_loss, generator_loss, kl_loss
+from tpu_tts_torch.layers.vits import (
+    ResidualCouplingBlocks,
+    StochasticDurationPredictor,
+    VitsDiscriminator,
+    VitsPosteriorEncoder,
+    VitsTextEncoder,
+    paired_disc_apply,
+)
 from tpu_tts_torch.models.base_tts import BaseTTSModel
-from tpu_tts_torch.ops.helpers import bucket_len, generate_path, sequence_mask
+from tpu_tts_torch.ops.helpers import bucket_len, generate_path, rand_segments, segment, sequence_mask
+from tpu_tts_torch.ops.mas import maximum_path
 from tpu_tts_torch.vocoder.models.hifigan_generator import HifiganGenerator
 
 
@@ -66,6 +91,7 @@ class VitsNet(nn.Module):
             num_layers=args.num_layers_text_encoder,
             kernel_size=args.kernel_size_text_encoder,
             language_emb_dim=self.lang_dim,
+            dropout_p=args.dropout_p_text_encoder,
         )
         self.flow = ResidualCouplingBlocks(
             channels=args.hidden_channels,
@@ -80,11 +106,13 @@ class VitsNet(nn.Module):
         dp_cond = embedded_speaker_dim if args.condition_dp_on_speaker else 0
         if args.use_sdp:
             self.duration_predictor = StochasticDurationPredictor(
-                width, 192, 3, num_flows=4, cond_channels=dp_cond, language_emb_dim=self.lang_dim
+                width, 192, 3, num_flows=4, cond_channels=dp_cond, language_emb_dim=self.lang_dim,
+                dropout_p=args.dropout_p_duration_predictor,
             )
         else:
             self.duration_predictor = DurationPredictor(
-                width, 256, 3, cond_channels=dp_cond, language_emb_dim=self.lang_dim
+                width, 256, 3, cond_channels=dp_cond, language_emb_dim=self.lang_dim,
+                dropout_p=args.dropout_p_duration_predictor,
             )
         self.waveform_decoder = HifiganGenerator(
             in_channels=args.hidden_channels,
@@ -121,6 +149,71 @@ class VitsNet(nn.Module):
         if self.args.interpolate_z:
             return F.interpolate(z, scale_factor=self.interp_factor, mode="linear", align_corners=False)
         return F.interpolate(z, scale_factor=self.interp_factor, mode="nearest")
+
+    def add_posterior_encoder(self):
+        """The linear-spectrogram encoder of training, as `posterior_encoder`."""
+        a = self.args
+        self.posterior_encoder = VitsPosteriorEncoder(
+            a.out_channels, a.hidden_channels, a.hidden_channels, a.kernel_size_posterior_encoder,
+            a.dilation_rate_posterior_encoder, a.num_layers_posterior_encoder, cond_channels=self.embedded_speaker_dim,
+        )
+
+    def duration_loss_and_attn(self, z_p, m_p, logs_p, h_text, x_mask, y_mask, sdp_noise, g, lang_emb):
+        """MAS alignment `[B, T_en, T_de]` of the prior to z_p, and the
+        duration predictor's loss on its frame counts."""
+        a = self.args
+        attn_mask = x_mask.transpose(1, 2) * y_mask  # [B, T_en, T_de]
+        with torch.no_grad():
+            o_scale = torch.exp(-2 * logs_p)  # [B, C, T_en]
+            logp1 = torch.sum(-0.5 * math.log(2 * math.pi) - logs_p, dim=1)[:, :, None]
+            logp2 = torch.matmul(o_scale.transpose(1, 2), -0.5 * z_p**2)
+            logp3 = torch.matmul((m_p * o_scale).transpose(1, 2), z_p)
+            logp4 = torch.sum(-0.5 * m_p**2 * o_scale, dim=1)[:, :, None]
+            attn = maximum_path(logp1 + logp2 + logp3 + logp4, attn_mask)
+        dr = torch.sum(attn, dim=2)[:, None, :]  # [B, 1, T_en]
+        dp_in = h_text.detach() if a.detach_dp_input else h_text
+        dp_g = g.detach() if g is not None and a.detach_dp_input else g
+        if not a.condition_dp_on_speaker:
+            dp_g = None
+        if a.use_sdp:
+            nll = self.duration_predictor(dp_in, x_mask, dr, sdp_noise, g=dp_g, lang_emb=lang_emb)
+            loss_duration = torch.sum(nll.float()) / torch.sum(x_mask)
+        else:
+            log_durations = self.duration_predictor(dp_in, x_mask, g=dp_g, lang_emb=lang_emb)
+            attn_log_durations = torch.log(dr + 1) * x_mask
+            loss_duration = torch.sum((log_durations - attn_log_durations) ** 2) / torch.sum(x_mask)
+        return attn, loss_duration
+
+    def forward(self, x, x_lengths, spec, spec_lengths, speaker_ids=None, d_vectors=None, language_ids=None,
+                generator: Optional[torch.Generator] = None, draws: Optional[Dict] = None) -> Dict:
+        """The training forward: x `[B, T_en]` token ids, spec `[B, C_spec,
+        T_de]` with their lengths. `draws` may hold `posterior` `[B, C, T_de]`
+        and `sdp` `[B, 2, T_en]` standard normals and `segments` `[B]`
+        uniforms; what it lacks is drawn from `generator`. Returns the
+        decoded segments `model_outputs` `[B, 1, spec_segment_size · hop]`
+        and what the losses read."""
+        draws = draws or {}
+        dev = spec.device
+        g, lang_emb = self.cond_embeddings(speaker_ids, d_vectors, language_ids)
+        h_text, m_p, logs_p, x_mask = self.text_encoder(x, x_lengths, lang_emb=lang_emb)
+        eps = draws.get("posterior")
+        if eps is None:
+            eps = torch.randn(spec.shape[0], self.args.hidden_channels, spec.shape[2], generator=generator, device=dev)
+        z, m_q, logs_q, y_mask = self.posterior_encoder(spec, spec_lengths, eps, g=g)
+        z_p = self.flow(z, y_mask, g=g)
+        sdp_noise = draws.get("sdp")
+        if sdp_noise is None and self.args.use_sdp:
+            sdp_noise = torch.randn(x.shape[0], 2, x.shape[1], generator=generator, device=dev)
+        attn, loss_duration = self.duration_loss_and_attn(z_p, m_p, logs_p, h_text, x_mask, y_mask, sdp_noise, g,
+                                                          lang_emb)
+        m_p_ex = torch.matmul(m_p, attn)  # [B, C, T_de]
+        logs_p_ex = torch.matmul(logs_p, attn)
+        z_slice, slice_ids = rand_segments(z, spec_lengths, self.args.spec_segment_size, let_short_samples=True,
+                                           pad_short=True, u=draws.get("segments"), generator=generator)
+        o = self.waveform_decoder(z_slice, g=g)
+        return {"model_outputs": o, "alignments": attn.transpose(1, 2), "m_p": m_p_ex, "logs_p": logs_p_ex, "z": z,
+                "z_p": z_p, "m_q": m_q, "logs_q": logs_q, "y_mask": y_mask, "loss_duration": loss_duration,
+                "slice_ids": slice_ids}
 
     def infer_durations(self, x, x_lengths, length_scale: float = None, sdp_noise_scale: float = None,
                         generator: torch.Generator = None, speaker_ids=None, d_vectors=None,
@@ -180,6 +273,131 @@ class Vits(BaseTTSModel):
             args.num_languages = max(args.num_languages, language_manager.num_languages)
         self.args = args
         self.net = VitsNet(args, output_sample_rate=config.audio.sample_rate).to(self.device).eval()
+        self.disc = None  # built by `init_training`
+
+    # ------------------------------------------------------------ training
+    def init_training(self):
+        """Build what training adds to the inference net: the posterior
+        encoder (in the net) and the discriminator (`self.disc`). Idempotent."""
+        a = self.args
+        if a.use_speaker_encoder_as_loss:
+            raise NotImplementedError("use_speaker_encoder_as_loss needs the speaker encoder (ROADMAP.md, M9)")
+        if a.encoder_sample_rate:
+            raise NotImplementedError("training with encoder_sample_rate is not ported yet (ROADMAP.md, M6)")
+        if a.use_speaker_embedding or a.use_d_vector_file or a.use_language_embedding:
+            raise NotImplementedError("multi-speaker and multilingual VITS training is not ported yet (ROADMAP.md, M6)")
+        if getattr(self.config, "mixed_precision", False):
+            raise NotImplementedError("mixed-precision training is not ported yet (ROADMAP.md, M6)")
+        if not hasattr(self.net, "posterior_encoder"):
+            self.net.add_posterior_encoder()
+            self.net.posterior_encoder.to(self.device)
+        if self.disc is None:
+            self.disc = VitsDiscriminator(tuple(a.periods_multi_period_discriminator),
+                                          a.use_spectral_norm_disriminator).to(self.device)
+
+    def num_optimizers(self) -> int:
+        return 2
+
+    def optimizer_params(self, optimizer_idx: int):
+        """The parameters optimizer `optimizer_idx` trains: D = 0, G = 1."""
+        return list(self.disc.parameters()) if optimizer_idx == 0 else list(self.net.parameters())
+
+    def train(self, mode: bool = True):
+        self.net.train(mode)
+        if self.disc is not None:
+            self.disc.train(mode)
+
+    def training_state_dict(self) -> Dict[str, torch.Tensor]:
+        """Generator and discriminator under Coqui's names (`disc.*`)."""
+        sd = dict(self.net.state_dict())
+        sd.update({f"disc.{k}": v for k, v in self.disc.state_dict().items()})
+        return sd
+
+    def load_training_state(self, state: Dict[str, torch.Tensor], strict: bool = True):
+        """Load `training_state_dict`'s keys (a Coqui VITS `.pth`'s `model`)."""
+        from tpu_tts_torch.utils.checkpoint import rename_old_weight_norm
+
+        state = {rename_old_weight_norm(k): v for k, v in state.items() if isinstance(v, torch.Tensor)}
+        self.net.load_state_dict({k: v for k, v in state.items() if not k.startswith("disc.")}, strict=strict)
+        self.disc.load_state_dict({k[5:]: v for k, v in state.items() if k.startswith("disc.")}, strict=strict)
+
+    def spec_from_wav(self, wav: torch.Tensor) -> torch.Tensor:
+        """`[B, 1, T]` → the linear spectrogram `[B, C, T / hop]` (VITS framing)."""
+        a = self.config.audio
+        return tt.wav_to_spec(wav[:, 0], fft_size=a.fft_size, hop_length=a.hop_length, win_length=a.win_length,
+                              center=False)
+
+    def mel_from_spec(self, spec: torch.Tensor) -> torch.Tensor:
+        a = self.config.audio
+        return tt.spec_to_mel(spec, fft_size=a.fft_size, num_mels=a.num_mels, sample_rate=a.sample_rate,
+                              fmin=a.mel_fmin, fmax=a.mel_fmax)
+
+    def mel_from_wav(self, wav: torch.Tensor) -> torch.Tensor:
+        return self.mel_from_spec(self.spec_from_wav(wav))
+
+    def forward_g(self, batch: Dict, generator=None, draws=None):
+        """The generator's training forward on a batch; also returns its spectrogram."""
+        spec = self.spec_from_wav(batch["waveform"])
+        outputs = self.net(batch["text_input"], batch["text_lengths"], spec, batch["mel_lengths"],
+                           speaker_ids=batch.get("speaker_ids"), d_vectors=batch.get("d_vectors"),
+                           language_ids=batch.get("language_ids"), generator=generator, draws=draws)
+        return outputs, spec
+
+    def loss_fn(self, batch: Dict, optimizer_idx: int, generator: Optional[torch.Generator] = None,
+                draws: Optional[Dict] = None):
+        """(loss, logs) of one sub-step: the discriminator's (0) or the
+        generator's (1), on the modules' current parameters. Each call runs
+        its own generator forward with its own draws."""
+        c = self.config
+        hop = int(np.prod(self.args.upsample_rates_decoder))
+        if optimizer_idx == 0:
+            with torch.no_grad():
+                outputs, _ = self.forward_g(batch, generator, draws)
+            y_hat = outputs["model_outputs"]
+            wav_seg = segment(batch["waveform"], outputs["slice_ids"] * hop, y_hat.shape[2], pad_short=True)
+            scores_real, scores_fake, _, _ = paired_disc_apply(self.disc, wav_seg, y_hat)
+            loss = discriminator_loss(scores_real, scores_fake) * c.disc_loss_alpha
+            return loss, {"loss_disc": loss}
+
+        outputs, spec = self.forward_g(batch, generator, draws)
+        y_hat = outputs["model_outputs"]
+        wav_seg = segment(batch["waveform"], outputs["slice_ids"] * hop, y_hat.shape[2], pad_short=True)
+        with _frozen(self.disc):
+            scores_fake, feats_fake = self.disc(y_hat)
+            with torch.no_grad():
+                _, feats_real = self.disc(wav_seg)
+        mel_hat = self.mel_from_wav(y_hat)
+        mel_seg = segment(self.mel_from_spec(spec), outputs["slice_ids"], self.args.spec_segment_size, pad_short=True)
+        T = min(mel_hat.shape[2], mel_seg.shape[2])
+        logs = {
+            "loss_mel": torch.mean(torch.abs(mel_seg[..., :T] - mel_hat[..., :T])) * c.mel_loss_alpha,
+            "loss_kl": kl_loss(outputs["z_p"], outputs["logs_q"], outputs["m_p"], outputs["logs_p"],
+                               outputs["y_mask"]) * c.kl_loss_alpha,
+            "loss_feat": feature_loss(feats_real, feats_fake) * c.feat_loss_alpha,
+            "loss_gen": generator_loss(scores_fake) * c.gen_loss_alpha,
+            "loss_duration": outputs["loss_duration"] * c.dur_loss_alpha,
+        }
+        loss = sum(logs.values())
+        logs["loss_gen_total"] = loss
+        return loss, logs
+
+    def get_optimizer(self):
+        """[D, G] optimizers (`train/optimizers.py`), each with its own lr
+        schedule and its entry of `grad_clip`."""
+        from tpu_tts_torch.train.optimizers import get_optimizer, get_scheduler
+
+        c = self.config
+        scheds = (get_scheduler(c.lr_scheduler_disc, c.lr_scheduler_disc_params, c.lr_disc),
+                  get_scheduler(c.lr_scheduler_gen, c.lr_scheduler_gen_params, c.lr_gen))
+        return [get_optimizer(c.optimizer, c.optimizer_params, self.optimizer_params(i), c, schedule=scheds[i],
+                              optimizer_idx=i) for i in range(2)]
+
+    def get_data_loader(self, config, assets, is_eval, samples, verbose, num_gpus=1, rank=0):
+        """The waveform loader: VITS computes its spectrograms from the
+        waveform on the device."""
+        config.return_wav = True
+        config.compute_linear_spec = False  # computed on the device
+        return super().get_data_loader(config, assets, is_eval, samples, verbose, num_gpus, rank)
 
     def _long(self, v) -> torch.Tensor:
         v = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
@@ -234,3 +452,16 @@ class Vits(BaseTTSModel):
         language_manager = LanguageManager.init_from_config(new_config)
         return Vits(new_config, ap, tokenizer, device=device, speaker_manager=speaker_manager,
                     language_manager=language_manager)
+
+
+@contextlib.contextmanager
+def _frozen(module: nn.Module):
+    """Within: `module`'s parameters take no gradient."""
+    params = [p for p in module.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)

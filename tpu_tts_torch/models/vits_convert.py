@@ -1,9 +1,11 @@
-"""JAX VITS generator params → the port's `state_dict`.
+"""JAX VITS params → the port's `state_dict`.
 
 `params_from_flax(tree)` takes the `generator` tree of the JAX model as a
 nested dict of numpy arrays and returns the tensors `VitsNet.load_state_dict`
-takes. It is the inverse of the JAX package's `convert_vits_torch_state_dict`
-(tpu_tts/models/vits_convert.py:195) on the modules inference runs:
+takes; `training_params_from_flax({"generator", "discriminator"})` returns
+those of `Vits.load_training_state`, the discriminator under `disc.*`. It is
+the inverse of the JAX package's `convert_vits_torch_state_dict`
+(tpu_tts/models/vits_convert.py:195):
 
 - flax path names → Coqui state-dict names (rules below);
 - Dense `[in, out]` → 1×1 conv `[out, in, 1]`; conv `[k, in, out]` → `[out, in, k]`;
@@ -19,7 +21,10 @@ The speaker and language modules need no rule of their own: the
 embeddings, every `cond`/`cond_lang` Dense, the WN `cond_layer` and the
 decoder's `cond_layer` keep their flax names. ResBlock2's `convs_{j}` and the
 deterministic duration predictor's `conv_{n}/conv` are renamed below. The
-posterior encoder belongs to training and is skipped.
+posterior encoder (`pre`, a WN `enc`, `proj`) takes the rules of the flow's.
+The discriminator's `disc_s` and `disc_p{p}` become `nets.0` and
+`nets.{1 + index of p}`; their 2-D kernels `[kh, kw, in, out]` become
+`[out, in, kh, kw]`, each weight-normalised over all but its output axis.
 """
 
 import re
@@ -106,7 +111,39 @@ def flax_to_state_dict(flat: Dict[str, np.ndarray], rules, is_transposed_conv=la
 
 
 def params_from_flax(tree) -> Dict[str, torch.Tensor]:
-    """JAX `VitsNet` params (the `generator` tree) → the port's `state_dict`."""
-    flat = {k: v for k, v in _flatten(tree).items() if not k.startswith("posterior_encoder/")}
-    sd = flax_to_state_dict(flat, _RULES, lambda module: re.search(r"waveform_decoder/ups_\d+$", module))
+    """JAX `VitsNet` params (the `generator` tree) → the port's `state_dict`
+    (with `posterior_encoder.*` when the tree holds it)."""
+    sd = flax_to_state_dict(_flatten(tree), _RULES, lambda module: re.search(r"waveform_decoder/ups_\d+$", module))
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def disc_params_from_flax(tree, periods) -> Dict[str, torch.Tensor]:
+    """JAX `VitsDiscriminator` params → the port's `VitsDiscriminator`
+    `state_dict`, for its `periods` in order."""
+    nets = {"disc_s": "nets.0", **{f"disc_p{p}": f"nets.{i + 1}" for i, p in enumerate(periods)}}
+    flat, sd = _flatten(tree), {}
+    for path, arr in flat.items():
+        net, conv, leaf = path.split("/")
+        name = f"{nets[net]}.{conv.replace('convs_', 'convs.')}"
+        if leaf == "bias":
+            sd[f"{name}.bias"] = arr
+        elif leaf == "v":
+            axes = tuple(range(arr.ndim - 1))
+            perm = (arr.ndim - 1, arr.ndim - 2) + tuple(range(arr.ndim - 2))  # [..k.., in, out] → [out, in, ..k..]
+            g = flat.get(f"{net}/{conv}/g")
+            if g is None:  # spectral norm: the raw kernel
+                sd[f"{name}.weight"] = np.ascontiguousarray(np.transpose(arr, perm))
+                continue
+            norm = np.sqrt(np.sum(arr.astype(np.float64) ** 2, axis=axes, keepdims=True) + 1e-12)
+            w = np.ascontiguousarray(np.transpose((arr / norm * g).astype(np.float32), perm))
+            g_t, v_t = _wn_split(w)
+            sd[f"{name}.parametrizations.weight.original0"] = g_t
+            sd[f"{name}.parametrizations.weight.original1"] = v_t
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def training_params_from_flax(params, periods) -> Dict[str, torch.Tensor]:
+    """JAX `{"generator", "discriminator"}` → `Vits.load_training_state`'s dict."""
+    sd = params_from_flax(params["generator"])
+    sd.update({f"disc.{k}": v for k, v in disc_params_from_flax(params["discriminator"], periods).items()})
+    return sd

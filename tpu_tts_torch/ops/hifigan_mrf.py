@@ -21,7 +21,10 @@ shared memory by TMA, the activations are the register operand.
 
 Layout: channels-first `[B, C, T]`, the layout of the port's generator.
 `mrf_stack` takes the kernel for a CUDA tensor and the plain version for a
-CPU tensor; nothing else chooses between them.
+CPU tensor; nothing else chooses between them. Neither has a backward: the
+weights are packed detached, as the JAX kernel has no VJP. `mrf_stack`
+raises where autograd would want one, rather than return an output without
+a gradient path; training runs the generator's plain ResBlock1 modules.
 """
 
 import ctypes
@@ -77,9 +80,11 @@ class MrfUnit:
 
 @dataclass
 class MrfStage:
-    """The weights of one stage's MRF stack, packed once per model load."""
+    """The weights of one stage's MRF stack, packed once per model load;
+    `sources` are the parameters they were folded from, if any."""
 
     blocks: List[List[MrfUnit]]
+    sources: Tuple[torch.Tensor, ...] = ()
 
     @property
     def dtype(self) -> torch.dtype:
@@ -95,9 +100,12 @@ def _kernel_pair(w: torch.Tensor):
     return hi.contiguous(), lo.contiguous()
 
 
-def pack_stage(resblocks: Sequence[Sequence[tuple]], dtype: torch.dtype = torch.float32) -> MrfStage:
+def pack_stage(resblocks: Sequence[Sequence[tuple]], dtype: torch.dtype = torch.float32,
+               sources: Sequence[torch.Tensor] = ()) -> MrfStage:
     """resblocks[b][u] = (w1 [C, C, k], b1 [C], w2 [C, C, k], b2 [C], d) with
-    weight norm folded (torch layout `[C_out, C_in, k]`)."""
+    weight norm folded (torch layout `[C_out, C_in, k]`); `sources`, the
+    parameters they come from, let `mrf_stack` refuse a call that autograd
+    would need a backward for."""
     blocks = []
     for units in resblocks:
         packed = []
@@ -113,7 +121,7 @@ def pack_stage(resblocks: Sequence[Sequence[tuple]], dtype: torch.dtype = torch.
                 )
             )
         blocks.append(packed)
-    return MrfStage(blocks)
+    return MrfStage(blocks, tuple(sources))
 
 
 def _conv(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int) -> torch.Tensor:
@@ -137,7 +145,14 @@ def mrf_stack_reference(x: torch.Tensor, stage: MrfStage) -> torch.Tensor:
 
 def mrf_stack(x: torch.Tensor, stage: MrfStage) -> torch.Tensor:
     """The MRF stack of one stage: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
+    plain version for a CPU tensor. Raises when gradients are enabled and x or
+    a source parameter of the stage requires one: neither route has a
+    backward."""
+    if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in stage.sources)):
+        raise RuntimeError(
+            "mrf_stack has no backward (its weights are packed detached); train the HiFi-GAN generator in "
+            "train() mode, which runs ResBlock1 in plain PyTorch, or call it under torch.no_grad()"
+        )
     if x.device.type == "cpu":
         return mrf_stack_reference(x, stage)
     if x.device.type != "cuda":

@@ -36,6 +36,13 @@ def read_checkpoint(path: str) -> Dict:
         return torch.load(path, map_location="cpu", weights_only=False)
 
 
+def rename_old_weight_norm(key: str) -> str:
+    """`X.weight_g`/`X.weight_v` → `X.parametrizations.weight.original0/1`."""
+    for pat, rep in _OLD_WEIGHT_NORM:
+        key = pat.sub(rep, key)
+    return key
+
+
 def net_state_dict(ckpt: Dict, net: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The tensors of a checkpoint dict that `net` takes, under its names.
     Loading the result with `strict=True` still raises on a missing key."""
@@ -45,8 +52,7 @@ def net_state_dict(ckpt: Dict, net: torch.nn.Module) -> Dict[str, torch.Tensor]:
     for key, value in sd.items():
         if not isinstance(value, torch.Tensor):
             continue
-        for pat, rep in _OLD_WEIGHT_NORM:
-            key = pat.sub(rep, key)
+        key = rename_old_weight_norm(key)
         if key in wanted:
             out[key] = value
         else:

@@ -1,0 +1,124 @@
+"""HiFi-GAN discriminators of VITS training, channels-first.
+
+Counterpart of `tpu_tts/vocoder/models/hifigan_discriminator.py`
+(`_spectral_normalize`:19, `NormConv`:33, `DiscriminatorP`:76,
+`DiscriminatorS`:114 at `slim=True`, VITS's schedule; the full schedule of
+the HiFi-GAN vocoder's scale discriminators comes with the vocoder GANs,
+ROADMAP M8). Module and
+parameter names are Coqui's (`convs.{i}`, `conv_post`, weight norm as
+`parametrizations.weight.original0/1` with g per output channel), so a Coqui
+VITS checkpoint's `disc.*` tensors load by name. Spectral norm is the JAX
+package's stateless kind: three power iterations from a uniform vector on
+every call, on a plain `weight`; a Coqui spectral-norm checkpoint
+(`weight_orig`, `weight_u`, `weight_v`) does not load.
+"""
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from tpu_tts_torch.layers.common import WeightNorm
+
+LRELU_SLOPE = 0.1
+
+
+def _spectral_normalize(w: torch.Tensor, n_iters: int = 3) -> torch.Tensor:
+    """w / σ_max(w) with w flattened to `[out, -1]`, stateless."""
+    mat = w.reshape(w.shape[0], -1)
+    u = torch.full((mat.shape[0],), mat.shape[0] ** -0.5, dtype=w.dtype, device=w.device)
+    for _ in range(n_iters):
+        v = mat.t() @ u
+        v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-12)
+        u = mat @ v
+        u = u / torch.clamp(torch.linalg.vector_norm(u), min=1e-12)
+    return w / torch.clamp(u @ (mat @ v), min=1e-12)
+
+
+class NormConv(nn.Module):
+    """A 1-D or 2-D conv (by the length of `kernel_size`) with weight norm,
+    or spectral norm with `use_spectral_norm`."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: Sequence[int], stride: Sequence[int],
+                 padding: Sequence[int], groups: int = 1, use_spectral_norm: bool = False):
+        super().__init__()
+        self.stride, self.padding, self.groups = tuple(stride), tuple(padding), groups
+        self.conv = F.conv1d if len(kernel_size) == 1 else F.conv2d
+        shape = (out_channels, in_channels // groups) + tuple(kernel_size)
+        fan_in = shape[1] * math.prod(kernel_size)
+        if use_spectral_norm:
+            self.weight = nn.Parameter(torch.randn(shape) * (2.0 / fan_in) ** 0.5)
+        else:
+            self.parametrizations = nn.ModuleDict({"weight": WeightNorm(shape)})
+            self.parametrizations["weight"].reset_parameters(fan_in)
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def kernel(self) -> torch.Tensor:
+        if hasattr(self, "parametrizations"):
+            return self.parametrizations["weight"]()
+        return _spectral_normalize(self.weight)
+
+    def forward(self, x):
+        return self.conv(x, self.kernel(), self.bias, stride=self.stride, padding=self.padding, groups=self.groups)
+
+
+class DiscriminatorP(nn.Module):
+    """Period discriminator: the waveform folded by `period` into 2-D, a
+    stack of (k, 1) convs. x `[B, 1, T]` → (score `[B, N]`, features)."""
+
+    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3, use_spectral_norm: bool = False):
+        super().__init__()
+        self.period = period
+        k = kernel_size
+        chans = [1, 32, 128, 512, 1024]
+        self.convs = nn.ModuleList(
+            NormConv(c_in, c_out, (k, 1), (stride, 1), (k // 2, 0), use_spectral_norm=use_spectral_norm)
+            for c_in, c_out in zip(chans[:-1], chans[1:])
+        )
+        self.convs.append(NormConv(1024, 1024, (k, 1), (1, 1), (2, 0), use_spectral_norm=use_spectral_norm))
+        self.conv_post = NormConv(1024, 1, (3, 1), (1, 1), (1, 0), use_spectral_norm=use_spectral_norm)
+
+    def forward(self, x):
+        feat = []
+        b, c, t = x.shape
+        if t % self.period:
+            n_pad = self.period - t % self.period
+            x = F.pad(x, (0, n_pad), mode="reflect")
+            t += n_pad
+        x = x.view(b, c, t // self.period, self.period)
+        for conv in self.convs:
+            x = F.leaky_relu(conv(x), LRELU_SLOPE)
+            feat.append(x)
+        x = self.conv_post(x)
+        feat.append(x)
+        return torch.flatten(x, 1), feat
+
+
+# (out channels, kernel, stride, groups, padding) of each conv of VITS's scale discriminator
+_SLIM = [(16, 15, 1, 1, 7), (64, 41, 4, 4, 20), (256, 41, 4, 16, 20), (1024, 41, 4, 64, 20),
+         (1024, 41, 4, 256, 20), (1024, 5, 1, 1, 2)]
+
+
+class DiscriminatorS(nn.Module):
+    """VITS's scale discriminator: a stack of grouped 1-D convs. x `[B, 1, T]`
+    → (score `[B, N]`, features)."""
+
+    def __init__(self, use_spectral_norm: bool = False):
+        super().__init__()
+        self.convs = nn.ModuleList()
+        c_in = 1
+        for c_out, k, s, g, p in _SLIM:
+            self.convs.append(NormConv(c_in, c_out, (k,), (s,), (p,), groups=g, use_spectral_norm=use_spectral_norm))
+            c_in = c_out
+        self.conv_post = NormConv(c_in, 1, (3,), (1,), (1,), use_spectral_norm=use_spectral_norm)
+
+    def forward(self, x):
+        feat = []
+        for conv in self.convs:
+            x = F.leaky_relu(conv(x), LRELU_SLOPE)
+            feat.append(x)
+        x = self.conv_post(x)
+        feat.append(x)
+        return torch.flatten(x, 1), feat

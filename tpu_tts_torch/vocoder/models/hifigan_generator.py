@@ -2,8 +2,11 @@
 
 Counterpart of `tpu_tts/vocoder/models/hifigan_generator.py`
 (`WNConvTranspose1d`:26, `ResBlock1`:57, `ResBlock2`:76, `HifiganGenerator`
-:93). With ResBlock1 each stage's MRF stack goes through
-`ops.hifigan_mrf.mrf_stack`, at every width. ResBlock2 (YourTTS's decoder)
+:93). In `eval()` mode, with ResBlock1 each stage's MRF stack goes through
+`ops.hifigan_mrf.mrf_stack`, at every width. In `train()` mode each stage
+is the mean of its ResBlock1 modules in plain PyTorch, on the live
+parameters, as the flax generator computes it in plain XLA for training:
+the kernel has no backward. ResBlock2 (YourTTS's decoder)
 runs in plain PyTorch, as `tpu_tts` runs it in plain XLA and never sends it
 to its Pallas kernel. With `cond_channels`, a 1×1 projection of the speaker
 embedding g `[B, C_g, 1]` is added after `conv_pre`, outside the kernel, as
@@ -44,14 +47,20 @@ class WNConvTranspose1d(nn.Module):
 
 
 class ResBlock1(nn.Module):
-    """Parameters of one ResBlock1: convs1 (dilated) and convs2 per unit. Its
-    math runs inside the stage's MRF stack."""
+    """One ResBlock1: convs1 (dilated) and convs2 per unit. `forward` is the
+    plain PyTorch math (training); `units` hands the folded weights to the
+    stage's MRF stack (inference)."""
 
     def __init__(self, channels: int, kernel_size: int = 3, dilation: Tuple[int, ...] = (1, 3, 5)):
         super().__init__()
         self.dilation = tuple(dilation)
         self.convs1 = nn.ModuleList(WNConv1d(channels, channels, kernel_size, dilation=d) for d in self.dilation)
         self.convs2 = nn.ModuleList(WNConv1d(channels, channels, kernel_size) for _ in self.dilation)
+
+    def forward(self, x):
+        for c1, c2 in zip(self.convs1, self.convs2):
+            x = c2(F.leaky_relu(c1(F.leaky_relu(x, LRELU_SLOPE)), LRELU_SLOPE)) + x
+        return x
 
     def units(self):
         return [
@@ -123,7 +132,7 @@ class HifiganGenerator(nn.Module):
         hit = self._packed.get(i)
         if hit is None or hit[0] != key:
             with torch.no_grad():
-                hit = (key, pack_stage([rb.units() for rb in blocks]))
+                hit = (key, pack_stage([rb.units() for rb in blocks], sources=params))
             self._packed[i] = hit
         return hit[1]
 
@@ -137,7 +146,7 @@ class HifiganGenerator(nn.Module):
             o = self.ups[i](F.leaky_relu(o, LRELU_SLOPE))
             if g is not None and hasattr(self, "conds"):
                 o = o + self.conds[i](g)
-            if self.resblock_type == "1":
+            if self.resblock_type == "1" and not self.training:
                 o = mrf_stack(o, self.mrf_stage(i))
             else:
                 blocks = self.resblocks[i * self.num_kernels : (i + 1) * self.num_kernels]
