@@ -100,7 +100,35 @@ result line:
    (`train overfit`);
    the trained checkpoint served by `/api/tts` through K1, 72 launches,
    within 1e-3 of the plain MRF (`train serve`);
-13. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
+13. K1 at the XTTS decoder's chunk shapes (34 and 104 decoder frames, at
+   B = 1 and 8) against the plain MRF, with its time, the plain time and
+   the bound (`kernel hifigan_mrf xtts chunk ...` lines);
+14. XTTS-v2 GPT fine-tuning: the full-width DVAE (seed 0) on the card
+   against the CPU, and one fine-tuning loss and backward of a tiny XTTS on
+   the card against the CPU (`xtts train card vs cpu`); then the default
+   full-width XTTS-v2 (seed 0) saved as a model directory and fine-tuned
+   through `Trainer.fit` (`restore_path` its checkpoint) at the recipe's
+   batch 3 and settings on clips of 2–11.6 s written from a seed, token ids
+   from the character table: ms a step split into the targets (mels, DVAE
+   codes), forward + backward and the update, clips and seconds of audio a
+   wall second, peak memory, the losses, every trained gradient nonzero at
+   step 2, K1 launched no time, the decoder and `speaker_proj`
+   bit-identical (`xtts train steps`, `xtts train losses`); one more epoch
+   against the same epoch resumed (`xtts train resume`); 20 steps on one
+   batch (`xtts train overfit`); the run directory served by
+   `/api/tts_stream` as a model directory, 72 K1 launches a chunk, the
+   decoder within 1e-3 of the plain MRF (`xtts train serve`);
+15. multilingual VITS training: the multilingual recipe's full-width VITS
+   (4 speakers, 3 languages, 16 kHz, the deterministic duration predictor,
+   the language-weighted sampler) at batch 32 on clips in M-AILABS's layout
+   written from a seed: losses finite, every parameter (`emb_g` and `emb_l`
+   among them) with a nonzero gradient at step 2, K1 launched no time, the
+   sampler's language shares (`train multispeaker`); then voice conversion
+   from the trained checkpoint through `Synthesizer.tts(reference_wav=,
+   reference_speaker_name=)`: 72 K1 launches, within 1e-3 of the plain MRF,
+   the source's spectrogram frames × hop long, another target speaker
+   another waveform (`vc serve`);
+16. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
 
 Each serving phase's requests are a main path: the launch counts are set to
 0 just before them and read just after. Phases 5 and 6 take the locked
@@ -1072,15 +1100,15 @@ def xtts_token_ids(text: str, lang: str = "en") -> list:
     return [XTTS_CHARS.index(c) + 1 for c in text.lower() if c in XTTS_CHARS]
 
 
-def save_xtts(tmp: str, device: str = "cuda", config=None) -> dict:
+def save_xtts(tmp: str, device: str = "cuda", config=None, stop_bias: bool = True) -> dict:
     """A full-width XTTS-v2 (default `XttsArgs`: GPT 30 × 1024, 16 heads,
     perceiver of 32 latents, HiFi-GAN 512 → 32 with `conds`) with weights
     from seed 0 on the card, saved as a model directory: `config.json`, a
     Coqui-key checkpoint `{"model": ...}` and a `speakers_xtts.pth` of two
     speakers whose latents the model computes from seeded 3 s wavs; plus a
     cloning wav for `speaker_wav`. The decoder is redrawn with unit gain
-    (`unit_gain_decoder`), and the stop code's head bias is set to -1e4, so
-    a random model runs every stream to its token budget."""
+    (`unit_gain_decoder`), and with `stop_bias` the stop code's head bias is
+    set to -1e4, so a random model runs every stream to its token budget."""
     import numpy as np
     import scipy.io.wavfile
     import torch
@@ -1093,8 +1121,9 @@ def save_xtts(tmp: str, device: str = "cuda", config=None) -> dict:
     config = XttsConfig() if config is None else config
     model = Xtts(config, device=device)
     unit_gain_decoder(model.net.hifigan_decoder["waveform_decoder"])
-    with torch.no_grad():
-        model.net.gpt.mel_head.bias[model.args.gpt_stop_audio_token] = -1e4
+    if stop_bias:
+        with torch.no_grad():
+            model.net.gpt.mel_head.bias[model.args.gpt_stop_audio_token] = -1e4
     rng = np.random.default_rng(SEED)
     speakers = {}
     for name in XTTS_SPEAKERS:
@@ -1461,28 +1490,47 @@ def write_ljspeech(root: str, seed: int = SEED) -> dict:
     clips (`metadata_val.csv`) in LJSpeech's layout, drawn from a numpy seed:
     2–10 s of a voiced tone (a wandering f0 with harmonics and noise, an
     envelope per syllable) at 22050 Hz, texts of 40–180 characters."""
+    return write_clips(root, seed, TRAIN_CLIPS, TRAIN_EVAL_CLIPS, (2.0, 10.0))
+
+
+def voiced_clip(rng, sr: int, dur: float):
+    """`dur` seconds of a voiced tone: a wandering f0 with harmonics and
+    noise, an envelope per syllable, peak 0.4–0.9."""
+    import numpy as np
+
+    t = np.arange(int(sr * dur)) / sr
+    f0 = 110 + 40 * rng.uniform() + 20 * np.sin(2 * np.pi * rng.uniform(0.2, 1.0) * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    sig = sum(rng.uniform(0.1, 0.5) / h * np.sin(h * phase) for h in range(1, 8))
+    sig = sig * (0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(2.0, 5.0) * t)) + 0.01 * rng.standard_normal(t.size)
+    return sig / np.abs(sig).max() * rng.uniform(0.4, 0.9)
+
+
+def random_text(rng, lo: int = 40, hi: int = 180) -> str:
+    target, words = rng.integers(lo, hi + 1), []
+    while len(" ".join(words)) < target:
+        words.append(TRAIN_WORDS[rng.integers(len(TRAIN_WORDS))])
+    return (" ".join(words)[:target].rstrip() + ".").capitalize()
+
+
+def write_clips(root: str, seed: int, n_train: int, n_eval: int, seconds_range, sr: int = 22050) -> dict:
+    """n_train clips (`metadata.csv`) and n_eval (`metadata_val.csv`) in
+    LJSpeech's layout from a numpy seed, each `voiced_clip` of a length
+    uniform in `seconds_range`, with a `random_text`."""
     import numpy as np
     import scipy.io.wavfile
 
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(root, "wavs"), exist_ok=True)
-    sr, seconds = 22050, []
-    for meta, n in (("metadata.csv", TRAIN_CLIPS), ("metadata_val.csv", TRAIN_EVAL_CLIPS)):
+    seconds = []
+    for meta, n in (("metadata.csv", n_train), ("metadata_val.csv", n_eval)):
         lines = []
         for i in range(n):
             name = f"{meta[:-4]}-{i:04d}"
-            dur = rng.uniform(2.0, 10.0)
-            t = np.arange(int(sr * dur)) / sr
-            f0 = 110 + 40 * rng.uniform() + 20 * np.sin(2 * np.pi * rng.uniform(0.2, 1.0) * t)
-            phase = 2 * np.pi * np.cumsum(f0) / sr
-            sig = sum(rng.uniform(0.1, 0.5) / h * np.sin(h * phase) for h in range(1, 8))
-            sig = sig * (0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(2.0, 5.0) * t)) + 0.01 * rng.standard_normal(t.size)
-            sig = sig / np.abs(sig).max() * rng.uniform(0.4, 0.9)
+            dur = rng.uniform(*seconds_range)
+            sig = voiced_clip(rng, sr, dur)
             scipy.io.wavfile.write(os.path.join(root, "wavs", name + ".wav"), sr, (sig * 32767).astype(np.int16))
-            target, words = rng.integers(40, 181), []
-            while len(" ".join(words)) < target:
-                words.append(TRAIN_WORDS[rng.integers(len(TRAIN_WORDS))])
-            text = (" ".join(words)[:target].rstrip() + ".").capitalize()
+            text = random_text(rng)
             lines.append(f"{name}|{text}|{text}")
             seconds.append(dur)
         with open(os.path.join(root, meta), "w", encoding="utf-8") as f:
@@ -1905,6 +1953,581 @@ def train_phase(tmp: str, device: str = "cuda") -> dict:
     return {**row, "guard": guard, "tiny": tiny, "resume_max_rel_err": rel, "overfit": overfit, "served": served}
 
 
+# ---------------------------------------------------------------- K1 at the XTTS chunk shapes
+XTTS_CHUNK_FRAMES = (34, 104)  # decoder frames of a first chunk of 8 latents and of a chunk of 4 + 20
+
+
+def check_mrf_kernel_xtts() -> list:
+    """K1 against `mrf_stack_reference` at the XTTS decoder's stage shapes of
+    a chunk (C = 256/128/64/32 at T = 8/64/128/256 × XTTS_CHUNK_FRAMES) at
+    B = 1 and B = 8, float32: each shape's error, time, plain time and bound,
+    and their sums per chunk shape."""
+    import torch
+
+    from tpu_tts_torch.ops import hifigan_mrf
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows = []
+    for frames in XTTS_CHUNK_FRAMES:
+        for B in (1, 8):
+            group = []
+            for C, up in ((256, 8), (128, 64), (64, 128), (32, 256)):
+                T = frames * up
+                x, stage = mrf_stage_inputs(C, T, torch.float32, gen, B=B)
+                got = hifigan_mrf.mrf_stack(x, stage)
+                ref = hifigan_mrf.mrf_stack_reference(x, stage)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                row = {"frames": frames, "B": B, "C": C, "T": T, "max_abs_err": err, "tol": F32_TOL,
+                       "ms": cuda_ms(lambda: hifigan_mrf.mrf_stack(x, stage), 5),
+                       "plain_ms": cuda_ms(lambda: hifigan_mrf.mrf_stack_reference(x, stage), 5),
+                       **mrf_work(stage, B, C, T, torch.float32)}
+                group.append(row)
+                if not bool(torch.isfinite(got).all()) or err > F32_TOL:
+                    raise AssertionError(f"hifigan_mrf disagrees with its plain version at the XTTS shape {row}")
+            rows += group
+            log(f"kernel hifigan_mrf xtts chunk frames={frames} B={B}: " + json.dumps({
+                k: sum(r[k] for r in group) for k in ("ms", "plain_ms", "bound_ms", "bound_cuda_core_ms")}
+                | {"max_abs_err": max(r["max_abs_err"] for r in group), "bound_by": "operations"
+                   if all(r["bound_by"] == "operations" for r in group) else "bytes"}))
+    return rows
+
+
+# ---------------------------------------------------------------- XTTS fine-tuning
+XTTS_TRAIN_CLIPS, XTTS_TRAIN_EVAL_CLIPS, XTTS_TRAIN_BATCH = 6, 3, 3  # the recipe's batch 3: 2 steps an epoch
+XTTS_TRAIN_EPOCHS = 2  # then one more epoch, resumed and uninterrupted
+XTTS_TINY = dict(gpt_layers=2, gpt_n_heads=2, gpt_n_model_channels=32, gpt_number_text_tokens=50,
+                 gpt_num_audio_tokens=1026, num_cond_latents=4, d_vector_dim=16, decoder_input_dim=32,
+                 gpt_start_text_token=48)
+DVAE_CODE_SHARE = 0.999  # DVAE codes equal on the card and the CPU; the rest within 1e-4 of the best distance
+
+
+def xtts_train_config(root: str, out: str, model_dir: str, epochs: int, args=None):
+    """The XTTS-v2 GPT fine-tuning recipe (`recipes/ljspeech/xtts_v2/
+    train_gpt_xtts.py`): batch 3, AdamW lr 5e-6, betas 0.9/0.96, eps 1e-8,
+    weight decay 1e-2, the exponential schedule (gamma 0.5 over 50000
+    steps), on the clips at `root` (LJSpeech's layout, English)."""
+    from tpu_tts_torch.config.shared_configs import BaseDatasetConfig
+    from tpu_tts_torch.configs.xtts_config import XttsArgs, XttsConfig
+
+    return XttsConfig(
+        model_args=args or XttsArgs(), model_dir=model_dir, batch_size=XTTS_TRAIN_BATCH,
+        eval_batch_size=XTTS_TRAIN_BATCH, num_loader_workers=2, run_eval=True, test_delay_epochs=-1, epochs=epochs,
+        print_step=1, save_step=0, save_n_checkpoints=1, optimizer="adamw",
+        optimizer_params={"betas": [0.9, 0.96], "eps": 1e-8, "weight_decay": 1e-2}, lr=5e-6,
+        lr_scheduler="exponential", lr_scheduler_params={"gamma": 0.5, "decay_steps": 50000},
+        training_seed=SEED + 1, output_path=out,
+        datasets=[BaseDatasetConfig(formatter="ljspeech", dataset_name="smoke", path=root, language="en",
+                                    meta_file_train="metadata.csv", meta_file_val="metadata_val.csv")])
+
+
+def xtts_batch(model, samples, seed: int = SEED) -> dict:
+    """One collated fine-tuning batch of `samples` (the loader's first at epoch 0)."""
+    loader = model.get_data_loader(model.config, {}, is_eval=False, samples=samples, verbose=False)
+    loader.set_epoch(seed)
+    return next(iter(loader))
+
+
+class XttsTrainProbe:
+    """Watches a fine-tuning `Trainer`: per step the wall time, CUDA events
+    around the targets (mels and DVAE codes), the loss's forward and
+    backward and the update; the losses; the batch's clips and seconds of
+    audio; at the second step, every trained parameter whose gradient is
+    missing or zero."""
+
+    def __init__(self, trainer):
+        import torch
+
+        self.steps, self.zero_grads, self.cur = [], None, None
+        model, (opt,) = trainer.model, trainer.optimizers
+        names = {id(p): n for n, p in model.net.named_parameters()}
+        orig_targets, orig_loss, orig_step, orig_train_step = model.targets, model.loss_fn, opt.step, trainer.train_step
+
+        def targets(batch):
+            self._mark("targets_start")
+            out = orig_targets(batch)
+            self._mark("targets_end")
+            return out
+
+        def loss_fn(batch, optimizer_idx=0, generator=None):
+            self._mark("loss")
+            loss, logs = orig_loss(batch, optimizer_idx, generator=generator)
+            if self.cur is not None:
+                self.cur["logs"] = {"loss": loss.detach(), **{k: v.detach() for k, v in logs.items()}}
+            return loss, logs
+
+        def step():
+            self._mark("opt_start")
+            if len(self.steps) == 1 and self.cur is not None:
+                self.zero_grads = [names.get(id(p), "?") for p in opt.params
+                                   if p.grad is None or not bool(p.grad.abs().max() > 0)]
+            applied = orig_step()
+            self._mark("opt_end")
+            return applied
+
+        def train_step(batch):
+            self.cur = {"events": {}, "logs": {}, "clips": int(batch["wav"].shape[0]),
+                        "audio_s": float(batch["wav_lengths"].sum()) / model.args.input_sample_rate}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig_train_step(batch)
+            torch.cuda.synchronize()
+            self.cur["wall_s"] = time.perf_counter() - t0
+            self.steps.append(self.cur)
+            self.cur = None
+            return out
+
+        model.targets, model.loss_fn, opt.step, trainer.train_step = targets, loss_fn, step, train_step
+
+    def _mark(self, name: str):
+        import torch
+
+        if self.cur is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.cur["events"][name] = ev
+
+    @staticmethod
+    def step_ms(step: dict) -> dict:
+        ev = step["events"]
+        ms = lambda a, b: ev[a].elapsed_time(ev[b])  # noqa: E731
+        return {"targets_ms": ms("targets_start", "targets_end"), "forward_backward_ms": ms("targets_end", "opt_start"),
+                "update_ms": ms("opt_start", "opt_end"), "step_ms": ms("loss", "opt_end"), "wall_ms": step["wall_s"] * 1e3}
+
+    @staticmethod
+    def losses(step: dict) -> dict:
+        return {k: float(v) for k, v in step["logs"].items()}
+
+
+def tiny_xtts_pair(args):
+    """A tiny `Xtts` (`args`) with seeded weights on the CPU and the same on the card."""
+    import torch
+
+    from tpu_tts_torch.configs.xtts_config import XttsConfig
+    from tpu_tts_torch.models.xtts import Xtts
+
+    models = {dev: Xtts(XttsConfig(model_args=args, batch_size=XTTS_TRAIN_BATCH), device=dev) for dev in ("cpu", "cuda")}
+    randomize_module(models["cpu"].net.gpt, torch.Generator().manual_seed(SEED))
+    models["cuda"].net.load_state_dict(models["cpu"].net.state_dict(), strict=True)
+    return models
+
+
+def check_xtts_train_card_vs_cpu(samples) -> dict:
+    """On a batch of the smoke's clips: the full-width DVAE (seed 0) on the
+    card against the CPU, the share of equal codes ≥ DVAE_CODE_SHARE and each
+    other code's distance within 1e-4 (relative) of the best; then one step's
+    loss and gradients of a tiny XTTS (XTTS_TINY) on the card against the
+    CPU on the CPU's codes: losses within TRAIN_STEP_TOL[0] relative, each
+    gradient within TRAIN_STEP_TOL[1] of its tensor's largest |gradient|."""
+    import torch
+
+    from tpu_tts_torch.configs.xtts_config import XttsArgs
+
+    models = tiny_xtts_pair(XttsArgs(**XTTS_TINY))
+    for m in models.values():
+        m.load_dvae()
+        m.bpe.encode = xtts_token_ids
+    batch = xtts_batch(models["cpu"], samples)
+    cpu = models["cpu"]
+    mel = cpu._dvae_mel(batch["wav"])
+    codes_cpu = cpu.dvae.get_codebook_indices(mel)
+    codes_card = models["cuda"].dvae.get_codebook_indices(mel.cuda()).cpu()
+    same = codes_cpu == codes_card
+    z = cpu.dvae.encode_latents(mel).double().transpose(1, 2)
+    embed = cpu.dvae.codebook.embed.double()
+    dist = z.pow(2).sum(-1, keepdim=True) - 2 * z @ embed + embed.pow(2).sum(0)
+    d_cpu, d_card = dist.gather(-1, codes_cpu[..., None])[..., 0], dist.gather(-1, codes_card[..., None])[..., 0]
+    gap = float(((d_card - d_cpu) / d_cpu.abs().clamp_min(1.0)).abs().max())
+    out = {"dvae_codes": int(same.numel()), "dvae_equal_share": float(same.float().mean()),
+           "dvae_distinct_codes": int(codes_cpu.unique().numel()), "dvae_max_rel_distance_gap": gap}
+    if out["dvae_equal_share"] < DVAE_CODE_SHARE or gap > 1e-4:
+        raise AssertionError(f"the DVAE's codes on the card disagree with the CPU's: {out}")
+
+    cond_mel = cpu._style_mel(batch["cond_wav"])
+    stride = cpu.args.gpt_code_stride
+    b = {"text_tokens": batch["text_tokens"], "text_lengths": batch["text_lengths"], "cond_mel": cond_mel,
+         "audio_codes": codes_cpu, "code_lengths": (batch["wav_lengths"] + stride - 1) // stride + 3}
+    res = {}
+    for dev, m in models.items():
+        m.train(True)
+        loss, logs = m.loss_fn({k: v.to(m.device) for k, v in b.items()})
+        loss.backward()
+        res[dev] = ({"loss": float(loss), **{k: float(v) for k, v in logs.items()}},
+                    {n: p.grad.cpu() for n, p in m.net.named_parameters() if p.grad is not None})
+    (lc, gc), (lg, gg) = res["cpu"], res["cuda"]
+    worst_loss = max(abs(lc[k] - lg[k]) / max(1.0, abs(lc[k])) for k in lc)
+    if set(gc) != set(gg) or not gc or any(not n.startswith("gpt.") for n in gc):
+        raise AssertionError("the card and the CPU gave gradients to different parameters, or to frozen ones")
+    worst_grad = max((float((gc[n] - gg[n]).abs().max()) - 1e-6) / max(float(gc[n].abs().max()), 1e-12) for n in gc)
+    out.update(losses={k: [lc[k], lg[k]] for k in lc}, max_loss_rel_err=worst_loss, max_grad_err_of_max=worst_grad,
+               loss_tol=TRAIN_STEP_TOL[0], grad_tol=TRAIN_STEP_TOL[1])
+    log("xtts train card vs cpu " + json.dumps(out))
+    if not (worst_loss <= TRAIN_STEP_TOL[0] and worst_grad <= TRAIN_STEP_TOL[1]):
+        raise AssertionError(f"the tiny fine-tune step on the card disagrees with the CPU: {out}")
+    return out
+
+
+def save_xtts_base(tmp: str, device: str = "cuda") -> dict:
+    """The base model directory to fine-tune: `save_xtts`'s full-width
+    XTTS-v2 from seed 0 with the stop code's head bias left as drawn."""
+    return save_xtts(tmp, device=device, stop_bias=False)
+
+
+def serve_finetuned(run_dir: str, device: str = "cuda") -> dict:
+    """The fine-tuned run directory served as a model directory by
+    `/api/tts_stream` (`--model_dir`): one stream of a bundled speaker,
+    checked as the XTTS phase checks one (HTTP 200, chunked PCM16, the length
+    its tokens give, 72 K1 launches a chunk); then the served model's decoder
+    on a chunk's latents against the plain MRF (≤ XTTS_TOL)."""
+    import torch
+
+    from tpu_tts_torch.infer.xtts_pool import XttsStreamPool
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.server.server import TTSHandler, create_server
+    from tpu_tts_torch.vocoder.models import hifigan_generator
+
+    server = create_server(argparse.Namespace(model_dir=run_dir, device=device, host="127.0.0.1", port=0,
+                                              max_streams=1))
+    model = TTSHandler.synthesizer.tts_model
+    model.bpe.encode = xtts_token_ids
+    pool = XttsStreamPool(model, max_streams=1, **XTTS_STREAM)
+    TTSHandler._pool = pool
+    streams, submit = {}, pool.submit
+
+    def recording_submit(**kwargs):
+        stream = submit(**kwargs)
+        streams[kwargs["text"]] = stream
+        return stream
+
+    pool.submit = recording_submit
+    dec = model.net.hifigan_decoder["waveform_decoder"]
+    per_call = sum(hifigan_mrf.launches_per_stage(dec.mrf_stage(i)) for i in range(dec.num_upsamples))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        cond, spk = model.speaker_latents(XTTS_SPEAKERS[0])
+        for _ in pool.submit(text="Warm up.", gpt_cond_latent=cond, speaker_embedding=spk, max_tokens=28):
+            pass
+        hifigan_mrf.launches = 0
+        query = f"text={urllib.parse.quote(XTTS_TEXTS[0])}&speaker_id={urllib.parse.quote(XTTS_SPEAKERS[0])}"
+        reply = stream_request(f"http://127.0.0.1:{server.server_address[1]}", query)
+        launches = hifigan_mrf.launches
+        plan = check_stream_reply(model, reply, streams[XTTS_TEXTS[0]].codes, "fine-tuned stream")
+        text, lengths = model._bucket_text(torch.tensor([xtts_token_ids(XTTS_TEXTS[0])], device=model.device))
+        _, lats, _ = model.net.generate_latents(cond, text, torch.Generator(device=model.device).manual_seed(SEED), 24,
+                                                0.75, 50, lengths)
+        got = model.net.decode_latents(lats, spk)
+        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
+        try:
+            ref = model.net.decode_latents(lats, spk)
+        finally:
+            hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
+        out = {"files": sorted(os.listdir(run_dir)), "tokens": len(streams[XTTS_TEXTS[0]].codes), "chunks": len(plan), "samples": int(reply["pcm"].size),
+               "first_chunk_ms": reply["first_s"] * 1e3, "wall_s": reply["wall_s"], "hifigan_mrf_launches": launches,
+               "launches_per_chunk": launches // len(plan), "decoder_max_abs_err_vs_plain":
+               float((got - ref).abs().max()), "tol": XTTS_TOL}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        pool.close()
+        TTSHandler._pool = None
+    log("xtts train serve " + json.dumps(out))
+    if launches != per_call * len(plan) or out["decoder_max_abs_err_vs_plain"] > XTTS_TOL:
+        raise AssertionError(f"the fine-tuned model did not stream through K1: {out}")
+    return out
+
+
+def xtts_overfit(config, samples, base_ckpt: str, device: str = "cuda") -> dict:
+    """OVERFIT_STEPS fine-tuning steps of the base model on one fixed batch:
+    the median loss of the last 10 must fall below the first step's."""
+    import statistics
+
+    import torch
+
+    from tpu_tts_torch.models.xtts import Xtts
+    from tpu_tts_torch.train import Trainer, TrainerArgs
+
+    model = Xtts(config, device=device)
+    model.bpe.encode = xtts_token_ids
+    trainer = Trainer(TrainerArgs(device=device, restore_path=base_ckpt), model.config, config.output_path,
+                      model=model, train_samples=samples)
+    batch = xtts_batch(model, samples)
+    losses = [float(trainer.train_step(batch)["loss"]) for _ in range(OVERFIT_STEPS)]
+    out = {"steps": len(losses), "loss": losses, "first": losses[0], "median_last10": statistics.median(losses[-10:])}
+    log("xtts train overfit " + json.dumps(out))
+    if not out["median_last10"] < out["first"]:
+        raise AssertionError(f"{OVERFIT_STEPS} fine-tuning steps on one batch did not lower the loss: {out}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def xtts_train_phase(tmp: str, device: str = "cuda") -> dict:
+    """XTTS-v2 GPT fine-tuning on the card: the DVAE and a tiny step on the
+    card against the CPU; the full-width model (seed 0) saved as a model
+    directory and fine-tuned through `Trainer.fit` (`restore_path` its
+    checkpoint) at the recipe's batch 3 and settings on clips of 2–11.6 s
+    written from a seed, XTTS_TRAIN_EPOCHS epochs of 2 steps: ms a step
+    (targets, forward + backward, update), clips and seconds of audio a wall
+    second, peak memory, losses, every trained gradient nonzero at step 2,
+    K1 launched no time, the decoder and `speaker_proj` bit-identical; one
+    more epoch uninterrupted against the same epoch resumed; OVERFIT_STEPS
+    steps on one batch; the run directory served by `/api/tts_stream`."""
+    import math
+
+    import torch
+
+    from tpu_tts_torch.data import load_tts_samples
+    from tpu_tts_torch.models.xtts import Xtts
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.train import Trainer, TrainerArgs
+    from tpu_tts_torch.train.checkpoint import get_last_checkpoint
+
+    root, out, base = (os.path.join(tmp, d) for d in ("data", "run", "base"))
+    os.makedirs(base)
+    data = write_clips(root, SEED + 5, XTTS_TRAIN_CLIPS, XTTS_TRAIN_EVAL_CLIPS, (2.0, 11.6))
+    log("xtts train data " + json.dumps(data))
+    config = xtts_train_config(root, out, base, XTTS_TRAIN_EPOCHS)
+    train_samples, eval_samples = load_tts_samples(config.datasets, eval_split=True)
+    tiny = check_xtts_train_card_vs_cpu(train_samples)
+    save_xtts_base(base, device)
+    base_ckpt = os.path.join(base, "model.pth")
+
+    model = Xtts(config, device=device)
+    model.bpe.encode = xtts_token_ids
+    trainer = Trainer(TrainerArgs(device=device, restore_path=base_ckpt), model.config, out, model=model,
+                      train_samples=train_samples, eval_samples=eval_samples)
+    frozen = {n: p.detach().clone() for n, p in model.net.named_parameters() if not n.startswith("gpt.")}
+    probe = XttsTrainProbe(trainer)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hifigan_mrf.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit()
+    fit_s = time.perf_counter() - t0
+    launches, peak_gb = hifigan_mrf.launches, torch.cuda.max_memory_allocated() / 2**30
+    steps = list(probe.steps)
+    timed = [XttsTrainProbe.step_ms(s) for s in steps[1:]]
+    wall = sum(s["wall_s"] for s in steps[1:])
+    row = {"steps": len(steps), "epochs": XTTS_TRAIN_EPOCHS, "batch": XTTS_TRAIN_BATCH, "fit_s": fit_s,
+           **{k: sum(t[k] for t in timed) / len(timed) for k in timed[0]},
+           "clips_per_s": sum(s["clips"] for s in steps[1:]) / wall,
+           "audio_s_per_s": sum(s["audio_s"] for s in steps[1:]) / wall, "peak_allocated_gb": peak_gb,
+           "trained_params": sum(p.numel() for p in model.optimizer_params(0)),
+           "params": sum(p.numel() for p in model.net.parameters()), "hifigan_mrf_launches": launches}
+    log("xtts train steps " + json.dumps(row))
+    losses = [XttsTrainProbe.losses(s) for s in steps]
+    log("xtts train losses " + json.dumps({"first": losses[0], "last": losses[-1]}))
+    bad = [k for s in losses for k, v in s.items() if not math.isfinite(v)]
+    moved = [n for n, p in model.net.named_parameters() if n in frozen and not torch.equal(p.detach(), frozen[n])]
+    if bad or probe.zero_grads is None or probe.zero_grads or moved or launches:
+        raise AssertionError(f"non-finite losses {bad[:4]}, trained parameters without a gradient "
+                             f"{(probe.zero_grads or ['(none checked)'])[:6]}, frozen parameters moved {moved[:4]}, "
+                             f"or {launches} K1 launches in training")
+
+    # one more epoch uninterrupted, then the same epoch resumed from a copy of the checkpoint
+    checkpoint = get_last_checkpoint(out)[0]
+    resume_from = os.path.join(tmp, "resume_from.pth")
+    os.link(checkpoint, resume_from)
+    n0 = len(probe.steps)
+    trainer.config.epochs = XTTS_TRAIN_EPOCHS + 1
+    trainer.fit()
+    uninterrupted = XttsTrainProbe.losses(probe.steps[n0])
+    del probe, trainer
+    torch.cuda.empty_cache()
+    model_b = Xtts(xtts_train_config(root, os.path.join(tmp, "resumed"), base, XTTS_TRAIN_EPOCHS + 1), device=device)
+    model_b.bpe.encode = xtts_token_ids
+    trainer_b = Trainer(TrainerArgs(device=device, continue_path=resume_from), model_b.config,
+                        os.path.join(tmp, "resumed"), model=model_b, train_samples=train_samples,
+                        eval_samples=eval_samples)
+    probe_b = XttsTrainProbe(trainer_b)
+    trainer_b.fit()
+    resumed = XttsTrainProbe.losses(probe_b.steps[0])
+    rel = max(abs(resumed[k] - uninterrupted[k]) / max(1.0, abs(uninterrupted[k])) for k in uninterrupted)
+    log("xtts train resume " + json.dumps({"step": trainer_b.total_steps_done, "max_rel_err": rel, "tol": RESUME_TOL,
+                                           "uninterrupted": uninterrupted, "resumed": resumed}))
+    if not rel <= RESUME_TOL:
+        raise AssertionError(f"the resumed fine-tune's next step differs from the uninterrupted one: {rel}")
+    del trainer_b, model_b, probe_b, model
+    torch.cuda.empty_cache()
+    for d in ("resumed",):
+        subprocess.run(["rm", "-rf", os.path.join(tmp, d)], check=True)
+    os.remove(resume_from)
+
+    overfit = xtts_overfit(xtts_train_config(root, os.path.join(tmp, "overfit"), base, 1), train_samples, base_ckpt,
+                           device)
+    subprocess.run(["rm", "-rf", os.path.join(tmp, "overfit")], check=True)
+    served = serve_finetuned(out, device)
+    return {**row, "tiny": tiny, "resume_max_rel_err": rel, "overfit": overfit, "served": served}
+
+
+# ---------------------------------------------------------------- multilingual VITS training, voice conversion
+ML_TRAIN_BATCH, ML_TRAIN_EPOCHS = 32, 2
+ML_CLIPS = {"en": 40, "fr": 16, "de": 8}  # per language, over SPEAKERS' four speakers: unbalanced on purpose
+ML_SPEAKER_LANGS = {"spk_a": "en", "spk_b": "en", "spk_c": "fr", "spk_d": "de"}
+
+
+def write_mailabs(root: str, seed: int = SEED + 7) -> dict:
+    """Clips in M-AILABS's layout (`<lang>/by_book/<gender>/<speaker>/<book>/
+    metadata.csv` and `wavs/`), 2.2–9.5 s at 16 kHz (the recipe's length
+    filter keeps 2.05–10 s), ML_CLIPS a language spread over the speakers
+    of that language; spk_a and spk_b share English."""
+    import numpy as np
+    import scipy.io.wavfile
+
+    rng = np.random.default_rng(seed)
+    counts = {}
+    for lang, n in ML_CLIPS.items():
+        speakers = [s for s, lg in ML_SPEAKER_LANGS.items() if lg == lang]
+        for j, spk in enumerate(speakers):
+            folder = os.path.join(root, lang, "by_book", "female", spk, "book")
+            os.makedirs(os.path.join(folder, "wavs"), exist_ok=True)
+            lines = []
+            for i in range(n // len(speakers)):
+                sig = voiced_clip(rng, 16000, rng.uniform(2.2, 9.5))
+                scipy.io.wavfile.write(os.path.join(folder, "wavs", f"{spk}_{i:03d}.wav"), 16000,
+                                       (sig * 32767).astype(np.int16))
+                text = random_text(rng, 30, 120)
+                lines.append(f"{spk}_{i:03d}|{text}|{text}")
+                counts[spk] = counts.get(spk, 0) + 1
+            with open(os.path.join(folder, "metadata.csv"), "w", encoding="utf-8") as f:
+                f.write("\n".join(lines) + "\n")
+    return counts
+
+
+def multilingual_train_config(root: str, out: str, epochs: int):
+    """The multilingual recipe (`recipes/multilingual/vits_tts/train_vits_tts.py`):
+    `save_multispeaker`'s model at batch 32 with the language-weighted
+    sampler, float32, one dataset a language."""
+    from tpu_tts_torch.config.shared_configs import BaseDatasetConfig
+    from tpu_tts_torch.configs.vits_config import VitsArgs, VitsAudioConfig, VitsConfig
+    from tpu_tts_torch.text.characters import CharactersConfig
+
+    return VitsConfig(
+        model_args=VitsArgs(use_language_embedding=True, embedded_language_dim=4, use_speaker_embedding=True,
+                            use_sdp=False),
+        audio=VitsAudioConfig(sample_rate=16000, win_length=1024, hop_length=256, num_mels=80, mel_fmin=0,
+                              mel_fmax=None),
+        use_speaker_embedding=True, batch_size=ML_TRAIN_BATCH, eval_batch_size=16, batch_group_size=0,
+        num_loader_workers=4, run_eval=False, epochs=epochs, print_step=1, save_step=0, save_n_checkpoints=1,
+        text_cleaner="multilingual_cleaners", use_phonemes=False, use_language_weighted_sampler=True,
+        mixed_precision=False, min_audio_len=32 * 256 * 4, max_audio_len=160000, training_seed=SEED + 1,
+        output_path=out,
+        characters=CharactersConfig(pad="<PAD>", eos="<EOS>", bos="<BOS>", blank="<BLNK>",
+                                    characters=MULTILINGUAL_CHARACTERS, punctuations=MULTILINGUAL_PUNCTUATIONS,
+                                    phonemes=None),
+        datasets=[BaseDatasetConfig(formatter="mailabs", path=os.path.join(root, lang), language=lang)
+                  for lang in ML_CLIPS])
+
+
+def multilingual_train_phase(tmp: str, device: str = "cuda") -> dict:
+    """The multilingual recipe's full-width VITS trained on the card at batch
+    32 for ML_TRAIN_EPOCHS epochs of 2 steps on M-AILABS-layout clips: ms a
+    step, losses finite, every parameter (`emb_g`, `emb_l` among them) with a
+    nonzero gradient at step 2, K1 launched no time; the language-weighted
+    sampler's draws over 200 epochs against the languages' equal shares
+    (`train multispeaker`); then voice conversion served from the trained
+    checkpoint (`serve_voice_conversion`)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from tpu_tts_torch.data import load_tts_samples
+    from tpu_tts_torch.models.vits import Vits
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.train import Trainer, TrainerArgs
+    from tpu_tts_torch.train.checkpoint import get_last_checkpoint
+
+    root, out = os.path.join(tmp, "mailabs"), os.path.join(tmp, "run")
+    counts = write_mailabs(root)
+    config = multilingual_train_config(root, out, ML_TRAIN_EPOCHS)
+    train_samples, _ = load_tts_samples(config.datasets, eval_split=False)
+    torch.manual_seed(SEED)
+    model = Vits.init_from_config(config, device=device, samples=train_samples)
+    unit_gain_decoder(model.net.waveform_decoder)
+    trainer = Trainer(TrainerArgs(device=device), model.config, out, model=model, train_samples=train_samples)
+    probe = TrainProbe(trainer)
+    try:
+        hifigan_mrf.launches = 0
+        t0 = time.perf_counter()
+        trainer.fit()
+        fit_s = time.perf_counter() - t0
+        launches = hifigan_mrf.launches
+        steps = list(probe.steps)
+    finally:
+        probe.close()
+    loader = model.get_data_loader(trainer.config, {}, is_eval=False, samples=train_samples, verbose=False)
+    langs = np.array([s["language"] for s in loader.dataset.samples])
+    drawn = []
+    for epoch in range(200):
+        loader.set_epoch(epoch)
+        drawn += [langs[i] for b in loader._batch_indices() for i in b]
+    share = {lang: float(np.mean(np.array(drawn) == lang)) for lang in ML_CLIPS}
+    plain = {lang: float(np.mean(langs == lang)) for lang in ML_CLIPS}
+    timed = [probe.step_ms(s) for s in steps[1:]]
+    row = {"steps": len(steps), "batch": ML_TRAIN_BATCH, "fit_s": fit_s, "clips": counts,
+           **{k: sum(t[k] for t in timed) / len(timed) for k in timed[0]},
+           "speakers": model.speaker_manager.name_to_id, "languages": model.language_manager.name_to_id,
+           "language_share_drawn": share, "language_share_unweighted": plain, "hifigan_mrf_launches": launches,
+           "first": TrainProbe.losses(steps[0]), "last": TrainProbe.losses(steps[-1])}
+    log("train multispeaker " + json.dumps(row))
+    bad = [k for s in steps for k, v in TrainProbe.losses(s).items() if not math.isfinite(v)]
+    names = {n for n, _ in model.net.named_parameters()}
+    if bad or probe.zero_grads is None or probe.zero_grads or launches or not {"emb_g.weight", "emb_l.weight"} <= names:
+        raise AssertionError(f"non-finite losses {bad[:4]}, parameters without a gradient "
+                             f"{(probe.zero_grads or ['(none checked)'])[:6]}, or {launches} K1 launches in training")
+    if max(abs(v - 1 / len(ML_CLIPS)) for v in share.values()) > 0.05:
+        raise AssertionError(f"the language-weighted sampler's draws do not follow its weights: {share}")
+    checkpoint = get_last_checkpoint(out)[0]
+    del trainer, model
+    torch.cuda.empty_cache()
+    source = next(s for s in train_samples if s["speaker_name"] == "spk_a")["audio_file"]
+    vc = serve_voice_conversion(checkpoint, os.path.join(out, "config.json"), source, device)
+    return {**row, "vc": vc}
+
+
+def serve_voice_conversion(checkpoint: str, config_path: str, source_wav: str, device: str = "cuda") -> dict:
+    """The trained checkpoint through `Synthesizer.tts(reference_wav=,
+    reference_speaker_name=)`: spk_a's clip in spk_c's voice, 72 K1
+    launches, the reply the source's spectrogram frames × hop long; the
+    model's conversion against the plain MRF (≤ 1e-3); spk_d as the target
+    gives another waveform."""
+    import numpy as np
+
+    from tpu_tts_torch.infer.synthesizer import Synthesizer
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.vocoder.models import hifigan_generator
+
+    synth = Synthesizer(checkpoint, config_path, device=device)
+    model, hop = synth.tts_model, synth.tts_config.audio.hop_length
+    src = model.ap.load_wav(source_wav)
+    ids = synth.speaker_manager.name_to_id
+    synth.tts(reference_wav=source_wav, speaker_name="spk_c", reference_speaker_name="spk_a")  # warm-up
+    hifigan_mrf.launches = 0
+    t0 = time.perf_counter()
+    wav = np.asarray(synth.tts(reference_wav=source_wav, speaker_name="spk_c", reference_speaker_name="spk_a"))
+    latency = time.perf_counter() - t0
+    launches = hifigan_mrf.launches
+    got = model.voice_conversion(src, ids["spk_a"], ids["spk_c"])
+    hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
+    try:
+        ref = model.voice_conversion(src, ids["spk_a"], ids["spk_c"])
+    finally:
+        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
+    other = model.voice_conversion(src, ids["spk_a"], ids["spk_d"])
+    out = {"source_samples": int(src.size), "frames": int(src.size // hop), "samples": int(wav.size),
+           "latency_s": latency, "hifigan_mrf_launches": launches, "max_abs_err_vs_plain": float(np.abs(got - ref).max()),
+           "served_vs_model_max_abs_err": float(np.abs(wav - got).max()), "rms": float(np.sqrt(np.mean(got**2))),
+           "other_target_max_abs_diff": float(np.abs(other - got).max()), "tol": 1e-3}
+    log("vc serve " + json.dumps(out))
+    if launches != 72 or wav.size != (src.size // hop) * hop or not np.isfinite(wav).all() \
+            or out["max_abs_err_vs_plain"] > 1e-3 or out["other_target_max_abs_diff"] <= 1e-4 or out["rms"] == 0:
+        raise AssertionError(f"voice conversion did not serve through K1: {out}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1962,6 +2585,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         train = train_phase(tmp)
+    torch.cuda.empty_cache()
+    xtts_k1 = check_mrf_kernel_xtts()
+    with tempfile.TemporaryDirectory() as tmp:
+        xtts_train = xtts_train_phase(tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        multilingual = multilingual_train_phase(tmp)
 
     f32 = [r for r in rows if r["dtype"] == "float32"]
     served = next(r for r in k2_rows if r["mode"] == "sampled")  # the mode the vocoder serves
@@ -1997,6 +2627,21 @@ def main() -> int:
         "train_launches": train["hifigan_mrf_launches"],
         "train_serve_launches": train["served"]["hifigan_mrf_launches"],
         "train_serve_max_abs_err": train["served"]["max_abs_err_vs_plain"],
+        # XTTS fine-tuning (the decoder frozen, never run) and multilingual VITS training: 0; the fine-tuned
+        # model's stream and VITS voice conversion: 72 a chunk, 72 a conversion
+        "xtts_train_launches": xtts_train["hifigan_mrf_launches"],
+        "xtts_finetuned_serve_launches": xtts_train["served"]["hifigan_mrf_launches"],
+        "xtts_finetuned_launches_per_chunk": xtts_train["served"]["launches_per_chunk"],
+        "xtts_finetuned_decoder_max_abs_err": xtts_train["served"]["decoder_max_abs_err_vs_plain"],
+        "multilingual_train_launches": multilingual["hifigan_mrf_launches"],
+        "vc_launches": multilingual["vc"]["hifigan_mrf_launches"],
+        "vc_max_abs_err": multilingual["vc"]["max_abs_err_vs_plain"],
+        "shapes_xtts_chunks": xtts_k1,
+        "launches_all_phases": (mrf_launches + batched["launches"] + multi["launches"] + yourtts["hifigan_mrf_launches"]
+                                + xtts["launches"] + train["hifigan_mrf_launches"]
+                                + train["served"]["hifigan_mrf_launches"] + xtts_train["hifigan_mrf_launches"]
+                                + xtts_train["served"]["hifigan_mrf_launches"] + multilingual["hifigan_mrf_launches"]
+                                + multilingual["vc"]["hifigan_mrf_launches"]),
     }, {
         "name": "wavernn_sampler",
         "route": "cuda",

@@ -567,3 +567,109 @@ def test_mrf_stack_refuses_a_gradient_on_cuda():
     with torch.no_grad():
         assert gen(x).shape == (1, 1, 80)
     assert hifigan_mrf.launches - before == 2 * 18
+
+
+def _tiny_xtts_train_pair():
+    """A tiny XTTS-v2 (2 GPT layers, 32 wide) for fine-tuning on the CPU and
+    on the card with the same seeded weights, a DVAE of 32 codes from seed
+    0 (`load_dvae`) on each, and a raw-wav batch of 2 rows."""
+    from tpu_tts_torch.configs.xtts_config import XttsArgs, XttsConfig
+    from tpu_tts_torch.models.xtts import Xtts
+
+    args = XttsArgs(gpt_layers=2, gpt_n_heads=2, gpt_n_model_channels=32, gpt_number_text_tokens=50,
+                    gpt_num_audio_tokens=34, gpt_start_audio_token=32, gpt_stop_audio_token=33, num_cond_latents=4,
+                    d_vector_dim=16, decoder_input_dim=32, gpt_start_text_token=48)
+    cpu, card = (Xtts(XttsConfig(model_args=args), device=d) for d in ("cpu", "cuda"))
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in cpu.net.gpt.parameters():
+            p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    card.net.load_state_dict(cpu.net.state_dict(), strict=True)
+    for m in (cpu, card):
+        m.load_dvae()
+    wav = torch.zeros(2, 8192)
+    wav[0] = 0.4 * torch.sin(0.05 * torch.arange(8192.0))
+    wav[1, :5000] = 0.3 * torch.sin(0.08 * torch.arange(5000.0))
+    batch = {"text_tokens": torch.randint(1, 47, (2, 12), generator=gen), "text_lengths": torch.tensor([12, 7]),
+             "wav": wav + 0.05 * torch.randn(wav.shape, generator=gen), "wav_lengths": torch.tensor([8192, 5000]),
+             "cond_wav": 0.3 * torch.randn(2, 4096, generator=gen), "cond_lengths": torch.tensor([4096, 3000])}
+    return cpu, card, batch
+
+
+@pytest.mark.cuda
+def test_xtts_dvae_codes_on_card_match_cpu():
+    """The DVAE's codes of a batch's mels on the card against the CPU's: at
+    least 0.999 of them equal, each other one within 1e-4 (relative) of the
+    CPU's best distance."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, card, batch = _tiny_xtts_train_pair()
+    mel = cpu._dvae_mel(batch["wav"])
+    got, want = card.dvae.get_codebook_indices(mel.cuda()).cpu(), cpu.dvae.get_codebook_indices(mel)
+    z = cpu.dvae.encode_latents(mel).double().transpose(1, 2)
+    embed = cpu.dvae.codebook.embed.double()
+    dist = z.pow(2).sum(-1, keepdim=True) - 2 * z @ embed + embed.pow(2).sum(0)
+    best = dist.gather(-1, want[..., None])
+    gap = (dist.gather(-1, got[..., None]) - best) / best.abs().clamp_min(1.0)
+    assert float((got == want).float().mean()) >= 0.999 and float(gap.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_xtts_fine_tune_step_on_card_matches_cpu():
+    """One fine-tuning loss and backward of a tiny XTTS through the raw
+    wavs (mels and DVAE codes on each device) on the card against the CPU:
+    losses within 1e-4 relative, each GPT gradient within 1e-3 of its
+    tensor's largest |gradient| plus 1e-6; the frozen decoder and
+    `speaker_proj` get none, and K1 is launched no time."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, card, batch = _tiny_xtts_train_pair()
+    before = hifigan_mrf.launches
+    results = []
+    for m in (cpu, card):
+        m.train(True)
+        loss, logs = m.loss_fn({k: v.to(m.device) for k, v in batch.items()})
+        loss.backward()
+        results.append(({k: float(v) for k, v in {"loss": loss, **logs}.items()},
+                        {n: p.grad.cpu() for n, p in m.net.named_parameters() if p.grad is not None}))
+    torch.cuda.synchronize()
+    assert hifigan_mrf.launches == before
+    (lc, gc), (lg, gg) = results
+    for k in lc:
+        assert abs(lc[k] - lg[k]) <= 1e-4 * max(1.0, abs(lc[k])), k
+    assert set(gc) == set(gg) and gc and all(n.startswith("gpt.") for n in gc)
+    for n in gc:
+        assert float((gc[n] - gg[n]).abs().max()) <= 1e-3 * float(gc[n].abs().max()) + 1e-6, n
+
+
+@pytest.mark.cuda
+def test_vits_voice_conversion_through_k1():
+    """A multi-speaker VITS's voice conversion on the card: 72 K1 launches
+    (the full 512 → 32 decoder), within 1e-3 of the same conversion through
+    the plain MRF, one spectrogram frame × hop of audio a frame; another
+    target speaker moves the waveform."""
+    from tpu_tts_torch.configs.vits_config import VitsArgs, VitsAudioConfig, VitsConfig
+    from tpu_tts_torch.models.vits import Vits
+    from tpu_tts_torch.vocoder.models import hifigan_generator
+
+    _need_cuda()
+    torch.manual_seed(0)
+    config = VitsConfig(model_args=VitsArgs(num_chars=40, hidden_channels=32, hidden_channels_ffn_text_encoder=48,
+                                            num_layers_text_encoder=1, num_layers_flow=1, use_speaker_embedding=True,
+                                            num_speakers=3, speaker_embedding_channels=16, use_sdp=False),
+                        audio=VitsAudioConfig(sample_rate=16000))
+    model = Vits(config, device="cuda")
+    model.init_training()  # the posterior encoder
+    model.train(False)
+    wav = 0.3 * torch.sin(0.03 * torch.arange(40 * 256.0)) + 0.02 * torch.randn(40 * 256)
+    before = hifigan_mrf.launches
+    got = model.voice_conversion(wav, 0, 2)
+    launches = hifigan_mrf.launches - before
+    hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
+    try:
+        ref = model.voice_conversion(wav, 0, 2)
+    finally:
+        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
+    assert launches == 72 and got.shape == (40 * 256,)
+    assert float(abs(got - ref).max()) <= 1e-3
+    assert float(abs(model.voice_conversion(wav, 0, 1) - got).max()) > 1e-5

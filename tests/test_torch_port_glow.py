@@ -33,7 +33,7 @@ import pytest
 import scipy.io.wavfile
 import torch
 
-from tests.torch_port_common import flax_param_shapes, jax_wavernn, max_err, port_wavernn, randomize
+from tests.torch_port_common import jax_wavernn, max_err, port_wavernn, randomize
 from tpu_tts.models.glow_convert import convert_glow_tts_torch_state_dict
 from tpu_tts_torch.models.glow_convert import params_from_flax
 
@@ -57,12 +57,17 @@ TEXT = "Be a voice, not an echo."
 
 @functools.lru_cache(maxsize=None)
 def jax_glow():
+    """The tiny JAX Glow-TTS with params from a numpy seed; the tree's layout
+    is the JAX package's converter applied to the port's state dict (the
+    paths and shapes of a flax trace, so the same draws, without the
+    trace's seconds)."""
     from tpu_tts.configs.glow_tts_config import GlowTTSConfig
     from tpu_tts.models.glow_tts import GlowTTS
+    from tpu_tts_torch.models.glow_tts import GlowTTS as PortGlowTTS
 
     model = GlowTTS.init_from_config(GlowTTSConfig(**TINY_GLOW))
-    x, y = jnp.zeros((2, 8), jnp.int32), jnp.zeros((2, 16, 20))
-    params = randomize(flax_param_shapes(model.net, x, jnp.array([8, 6]), y, jnp.array([16, 12])), 5)
+    port = PortGlowTTS.init_from_config(port_glow_config(), device="cpu")
+    params = randomize(convert_glow_tts_torch_state_dict({k: v.numpy() for k, v in port.net.state_dict().items()}), 5)
     rng = np.random.default_rng(6)
     for name, node in params["decoder"].items():
         if name.startswith("invconv_"):  # a random rotation, as the flax init draws

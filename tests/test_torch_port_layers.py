@@ -125,7 +125,8 @@ def test_port_imports_neither_jax_nor_tpu_tts():
                             "tpu_tts_torch.train.optimizers", "tpu_tts_torch.train.checkpoint",
                             "tpu_tts_torch.data.dataset", "tpu_tts_torch.data.formatters",
                             "tpu_tts_torch.data.samplers", "tpu_tts_torch.ops.mas", "tpu_tts_torch.layers.losses",
-                            "tpu_tts_torch.vocoder.models.hifigan_discriminator", "tpu_tts_torch.bin.train_tts")
+                            "tpu_tts_torch.vocoder.models.hifigan_discriminator", "tpu_tts_torch.bin.train_tts",
+                            "tpu_tts_torch.layers.xtts.dvae", "tpu_tts_torch.layers.xtts.dataset")
                 if m not in sys.modules]  # the serving modules are among those walked
         print(len([m for m in sys.modules if m.startswith("tpu_tts_torch.")]), bad)
         """

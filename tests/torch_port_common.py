@@ -72,14 +72,19 @@ def port_config(**overrides):
 @functools.lru_cache(maxsize=None)
 def jax_model():
     """The tiny JAX `Vits` with seeded random generator params (built once
-    per process)."""
+    per process). The tree's layout comes from the JAX package's Coqui
+    converter applied to the port's training state dict: the same paths and
+    shapes as a flax trace of the training forward (so the same draws), in
+    a fraction of the trace's seconds."""
     from tpu_tts.models.vits import Vits
+    from tpu_tts.models.vits_convert import convert_vits_torch_state_dict
+    from tpu_tts_torch.models.vits import Vits as PortVits
 
     model = Vits(jax_config())
-    x = jnp.zeros((1, 8), jnp.int32)
-    spec = jnp.zeros((1, 12, model.args.out_channels))
-    shapes = flax_param_shapes(model.net, x, jnp.array([8]), spec, jnp.array([12]), train=True)
-    model.params = {"generator": randomize(shapes, SEED)}
+    pm = PortVits(port_config(), device="cpu")
+    pm.init_training()
+    tree = convert_vits_torch_state_dict({k: v.numpy() for k, v in pm.training_state_dict().items()})
+    model.params = {"generator": randomize(tree["generator"], SEED)}
     return model
 
 
@@ -184,17 +189,26 @@ def draw_xtts_tree(tree, seed: int):
 
 @functools.lru_cache(maxsize=None)
 def jax_xtts(**overrides):
-    """A tiny JAX `Xtts` (XTTS_ARGS with `overrides`) with seeded params (built once per process)."""
+    """A tiny JAX `Xtts` (XTTS_ARGS with `overrides`) with seeded params
+    (built once per process). The tree's layout is the JAX package's Coqui
+    converter applied to the port's state dict, plus `speaker_proj` (Coqui
+    has none): the paths and shapes of a flax `init_all` trace, so the same
+    draws, without the trace's seconds."""
     from tpu_tts.configs.xtts_config import XttsConfig
-    from tpu_tts.models.xtts import Xtts, XttsArgs, XttsNet
+    from tpu_tts.models.xtts import Xtts, XttsArgs
+    from tpu_tts.models.xtts_convert import convert_xtts_torch_state_dict
+    from tpu_tts_torch.configs.xtts_config import XttsArgs as PortArgs
+    from tpu_tts_torch.configs.xtts_config import XttsConfig as PortConfig
+    from tpu_tts_torch.models.xtts import Xtts as PortXtts
 
     cfg = XttsConfig()
     cfg.model_args = XttsArgs(**{**XTTS_ARGS, **overrides})
     model = Xtts(cfg)
-    shapes = jax.eval_shape(lambda: model.net.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 32, 80)), jnp.zeros((1, 8), jnp.int32), jnp.zeros((1, 12), jnp.int32),
-        method=XttsNet.init_all))["params"]
-    model.params = draw_xtts_tree(shapes, SEED)
+    port = PortXtts(PortConfig(model_args=PortArgs(**{**XTTS_ARGS, **overrides})), device="cpu")
+    sd = {k: v.numpy() for k, v in port.net.state_dict().items()}
+    tree = convert_xtts_torch_state_dict(sd)
+    tree["speaker_proj"] = {"kernel": sd["speaker_proj.weight"].T, "bias": sd["speaker_proj.bias"]}
+    model.params = draw_xtts_tree(tree, SEED)
     return model
 
 

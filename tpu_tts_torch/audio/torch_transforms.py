@@ -11,7 +11,10 @@ the signal is reflect-padded by `(fft_size - hop_length) / 2` on each side,
 framed without centring, and the magnitude is `sqrt(re² + im² + 1e-6)`;
 the mel basis is the port's librosa-compatible one
 (`numpy_transforms.mel_filterbank`); the log is `log(clamp(mel, 1e-5))`.
-`torchaudio_mel` (the fine-tuning mels) waits for XTTS training.
+`torchaudio_mel` (`jax_transforms.py`:242) is XTTS fine-tuning's mel:
+torchaudio's `MelSpectrogram` (power 2, centred frames with reflect
+padding, a Slaney-normalised HTK mel basis), the log clamped at 1e-5 and
+divided per bin by `mel_norms` when given.
 """
 
 from typing import Optional
@@ -49,3 +52,19 @@ def wav_to_mel(y: torch.Tensor, *, fft_size: int, num_mels: int, sample_rate: in
     """VITS-semantics log-mel: `[B, T] → [B, num_mels, T_spec]`."""
     spec = wav_to_spec(y, fft_size=fft_size, hop_length=hop_length, win_length=win_length, center=center)
     return spec_to_mel(spec, fft_size=fft_size, num_mels=num_mels, sample_rate=sample_rate, fmin=fmin, fmax=fmax)
+
+
+def torchaudio_mel(y: torch.Tensor, *, fft_size: int, hop_length: int, win_length: int, sample_rate: int,
+                   num_mels: int, fmin: float = 0.0, fmax: Optional[float] = None, htk: bool = True,
+                   log_clamp: float = 1e-5, mel_norms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """torchaudio-semantics log-mel: `[B, T] → [B, num_mels, 1 + T // hop_length]`."""
+    window = torch.from_numpy(_pad_window(get_window("hann", win_length), fft_size).astype(np.float32))
+    spec = torch.stft(y.float(), fft_size, hop_length=hop_length, win_length=fft_size, window=window.to(y.device),
+                      center=True, pad_mode="reflect", return_complex=True)
+    power = spec.real**2 + spec.imag**2
+    basis = mel_filterbank(sample_rate=sample_rate, fft_size=fft_size, num_mels=num_mels, mel_fmin=fmin,
+                           mel_fmax=fmax, htk=htk, norm="slaney")
+    mel = torch.log(torch.clamp(torch.matmul(torch.from_numpy(basis).to(y.device), power), min=log_clamp))
+    if mel_norms is not None:
+        mel = mel / mel_norms.to(mel.device)[:, None]
+    return mel

@@ -9,8 +9,9 @@ for models given by local path:
 
 The models run on `--device` (`cuda` unless told otherwise; `--device cpu`
 off the card). `--model_name`/`--vocoder_name` need a download and raise
-(ROADMAP.md); so do voice conversion and reference or style wavs, which
-come with their models.
+(ROADMAP.md). `--reference_wav` with `--reference_speaker_idx` converts a
+recording into the voice of `--speaker_idx` (VITS with a posterior
+encoder, i.e. a trained checkpoint).
 """
 
 import argparse
@@ -29,6 +30,9 @@ Examples:
   python -m tpu_tts_torch.bin.synthesize --text "Bonjour." --model_path model.pth --config_path config.json \\
       --speaker_idx spk_b --language_idx fr --out_path out.wav
   python -m tpu_tts_torch.bin.synthesize --model_path model.pth --config_path config.json --list_speaker_idxs
+  # voice conversion: a recording of spk_a in spk_b's voice
+  python -m tpu_tts_torch.bin.synthesize --model_path model.pth --config_path config.json \\
+      --reference_wav spk_a.wav --reference_speaker_idx spk_a --speaker_idx spk_b --out_path out.wav
   # list released models (the registry; downloading them is not ported)
   python -m tpu_tts_torch.bin.synthesize --list_models
 """
@@ -63,6 +67,8 @@ def make_parser():
     parser.add_argument("--speakers_file_path", type=str, default=None)
     parser.add_argument("--list_speaker_idxs", action="store_true")
     parser.add_argument("--list_language_idxs", action="store_true")
+    parser.add_argument("--reference_wav", type=str, default=None, help="Speech to convert into --speaker_idx's voice.")
+    parser.add_argument("--reference_speaker_idx", type=str, default=None, help="The speaker of --reference_wav.")
     return parser
 
 
@@ -104,11 +110,13 @@ def main(argv=None):
         print(" > Available language ids:")
         print(synthesizer.language_manager.name_to_id if synthesizer.language_manager else {})
         return
-    if not args.text:
-        print(" [!] Define `--text` to synthesize.")
+    if not args.text and not args.reference_wav:
+        print(" [!] Define `--text` or `--reference_wav`.")
         sys.exit(1)
-    print(f" > Text: {args.text}")
-    wav = synthesizer.tts(text=args.text, speaker_name=args.speaker_idx or "", language_name=args.language_idx or "")
+    print(f" > Text: {args.text}" if args.text else f" > Reference: {args.reference_wav}")
+    wav = synthesizer.tts(text=args.text or "", speaker_name=args.speaker_idx or "",
+                          language_name=args.language_idx or "", reference_wav=args.reference_wav,
+                          reference_speaker_name=args.reference_speaker_idx)
     print(f" > Saving output to {args.out_path}")
     synthesizer.save_wav(wav, args.out_path, pipe_out=pipe_out)
 

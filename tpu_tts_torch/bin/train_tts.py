@@ -8,9 +8,13 @@ Counterpart of `tpu_tts/bin/train_tts.py`:
 `--continue_path` resumes a run directory (its `config.json` and newest
 checkpoint: weights, optimizers, step, epoch and the generators' states);
 `--restore_path` starts from the weights of a checkpoint, the port's or a
-Coqui VITS `.pth` holding the generator and `disc.*`. The run trains on
-`--device` (`cuda` unless told otherwise) and writes to the config's
-`output_path`, or into the continued directory.
+Coqui VITS `.pth` holding the generator and `disc.*`, or an XTTS model
+directory's checkpoint, whose directory then becomes the config's
+`model_dir` unless it names one (its `speakers_xtts.pth` is copied beside
+the run's checkpoints, so the run directory serves as a model directory).
+A multi-speaker VITS takes its speaker ids from the samples. The run
+trains on `--device` (`cuda` unless told otherwise) and writes to the
+config's `output_path`, or into the continued directory.
 """
 
 import os
@@ -61,7 +65,9 @@ def main(argv=None):
         eval_split_max_size=config.eval_split_max_size,
         eval_split_size=config.eval_split_size,
     )
-    model = setup_model(config, device=train_args.device)
+    if train_args.restore_path and hasattr(config, "model_dir") and not config.model_dir:
+        config.model_dir = os.path.dirname(os.path.abspath(train_args.restore_path))
+    model = setup_model(config, device=train_args.device, samples=train_samples + (eval_samples or []))
     output_path = train_args.continue_path if train_args.continue_path else config.output_path
     trainer = Trainer(
         TrainerArgs.from_dict({k: v for k, v in train_args.to_dict().items() if k != "config_path"}),

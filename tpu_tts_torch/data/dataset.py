@@ -4,7 +4,12 @@ Counterpart of `tpu_tts/data/dataset.py` (`TTSDataset`:63, `collate_fn`:245,
 `TTSDataLoader`:344). The collate pads to shape buckets (the next multiple
 of `text_bucket` / `mel_bucket`), as the JAX one does, and returns CPU
 tensors; the trainer moves each batch to its device. The waveform is
-`[B, 1, T_mel · hop]`, channels-first. The linear spectrograms, pitch,
+`[B, 1, T_mel · hop]`, channels-first. With the managers' maps the collate
+adds per-row `speaker_ids`, `d_vectors` (each speaker's first d-vector) and
+`language_ids` (`:330-340`); with sample `weights` (the speaker, language
+and length balancers) the loader draws each epoch's items with replacement
+in proportion to them, from the epoch's seeded generator, and sorts them
+so that batches keep the length sorting. The linear spectrograms, pitch,
 energy and aligner priors of the other acoustic models come with them
 (ROADMAP.md, M9); VITS computes its spectrograms on the device.
 
@@ -85,6 +90,9 @@ class TTSDataset:
         text_bucket: int = 32,
         mel_bucket: int = 64,
         verbose: bool = False,
+        speaker_id_mapping: Optional[Dict] = None,
+        d_vector_mapping: Optional[Dict] = None,
+        language_id_mapping: Optional[Dict] = None,
     ):
         self.samples = samples or []
         self.outputs_per_step = outputs_per_step
@@ -101,6 +109,9 @@ class TTSDataset:
         self.text_bucket = text_bucket
         self.mel_bucket = max(mel_bucket, outputs_per_step)
         self.verbose = verbose
+        self.speaker_id_mapping = speaker_id_mapping
+        self.d_vector_mapping = d_vector_mapping
+        self.language_id_mapping = language_id_mapping
         self.rescue_item_idx = 1
         self.phoneme_cache = FeatureCache(phoneme_cache_path, "_phoneme.npy")
         self._token_cache: Dict[int, np.ndarray] = {}
@@ -215,6 +226,13 @@ class TTSDataset:
                 waveform[i, 0, : len(w)] = w
             out["waveform"] = torch.from_numpy(waveform)
             out["waveform_lengths"] = torch.from_numpy(np.minimum(wav_lens, T_wav))
+        if self.speaker_id_mapping:
+            out["speaker_ids"] = torch.tensor([self.speaker_id_mapping[d["speaker_name"]] for d in batch])
+        if self.d_vector_mapping:
+            out["d_vectors"] = torch.from_numpy(np.array(
+                [np.asarray(self.d_vector_mapping[d["speaker_name"]][0], dtype=np.float32) for d in batch]))
+        if self.language_id_mapping:
+            out["language_ids"] = torch.tensor([self.language_id_mapping[d["language_name"]] for d in batch])
         return out
 
 
@@ -224,8 +242,9 @@ class TTSDataLoader:
     the host, `num_workers` threads building batches ahead."""
 
     def __init__(self, dataset: TTSDataset, batch_size: int, shuffle: bool = True, drop_last: bool = True,
-                 seed: int = 0, num_workers: int = 0):
+                 seed: int = 0, num_workers: int = 0, weights: Optional[np.ndarray] = None):
         self.dataset = dataset
+        self.weights = None if weights is None else np.asarray(weights, dtype=np.float64) / np.sum(weights)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -245,7 +264,11 @@ class TTSDataLoader:
 
     def _batch_indices(self) -> List[List[int]]:
         rng = np.random.default_rng([self.seed, self.epoch])
-        idxs = list(range(len(self.dataset)))
+        n = len(self.dataset)
+        if self.weights is not None:
+            idxs = sorted(int(i) for i in rng.choice(n, size=n, replace=True, p=self.weights))
+        else:
+            idxs = list(range(n))
         # group-local shuffle that keeps the length sorting
         if self.shuffle and self.dataset.batch_group_size > 0:
             g = self.dataset.batch_group_size

@@ -8,6 +8,8 @@ to a vocoder, or which Griffin-Lim turns into a waveform on the host when
 `ap.find_endpoint`. A speaker id, a d-vector and a language id reach the
 model as one-row `speaker_ids`, `d_vectors` and `language_ids`; the
 language's name also picks the tokenizer's phonemizer, as in JAX.
+`transfer_voice` (`:80`) is VITS voice conversion: a reference waveform
+from its speaker into the target speaker's voice.
 """
 
 from typing import Dict, Optional
@@ -74,3 +76,15 @@ def synthesis(model, text: str, CONFIG, speaker_id: Optional[int] = None, use_gr
         "alignments": outputs["alignments"].cpu().numpy(),
         "text_inputs": token_ids,
     }
+
+
+def transfer_voice(model, CONFIG, reference_wav, speaker_id=None, d_vector=None, reference_speaker_id=None,
+                   reference_d_vector=None, do_trim_silence: bool = False, seed: int = 0) -> np.ndarray:
+    """`reference_wav` (spoken by the reference speaker, an id or a d-vector)
+    in the voice of `speaker_id` or `d_vector`; `seed` draws the posterior's ε."""
+    src = reference_speaker_id if reference_speaker_id is not None else reference_d_vector
+    tgt = speaker_id if speaker_id is not None else d_vector
+    wav = model.voice_conversion(reference_wav, src, tgt, seed=seed)
+    if do_trim_silence:
+        wav = trim_silence(wav, model.ap)
+    return wav

@@ -23,9 +23,13 @@ request is repeatable.
 The speaker and language managers are the model's (`tpu_tts_torch/
 managers.py`): a speaker name resolves to its id in the model's embedding
 table, or with d-vectors to the mean of its clips' d-vectors; a language
-name to its id. A model without managers resolves no ids, as in JAX. Voice
-conversion (`reference_wav`) needs the posterior encoder (ROADMAP.md, M6)
-and a d-vector from `speaker_wav` the speaker encoder (M9): both raise.
+name to its id. A model without managers resolves no ids, as in JAX. A
+d-vector from `speaker_wav` needs the speaker encoder (ROADMAP.md, M9) and
+raises. With `reference_wav` the call is VITS voice conversion
+(`tpu_tts/infer/synthesizer.py`:208-220): the reference speaker's name
+resolves like the target's (a d-vector model takes that speaker's mean
+d-vector, where JAX passes none), and the waveform is trimmed when
+`do_trim_silence` is set (JAX's voice-conversion route never trims).
 
 A model with its own pipeline (XTTS) gets each sentence through its
 `synthesize` (`tpu_tts/infer/synthesizer.py`:223-231), with the speaker
@@ -47,7 +51,7 @@ import numpy as np
 
 from tpu_tts_torch.config import load_config
 from tpu_tts_torch.device import resolve_device
-from tpu_tts_torch.infer.synthesis import synthesis, trim_silence
+from tpu_tts_torch.infer.synthesis import synthesis, transfer_voice, trim_silence
 from tpu_tts_torch.text.sentence_split import split_sentences
 
 SENTENCE_GAP = 10000  # samples of silence after each sentence
@@ -182,14 +186,17 @@ class Synthesizer:
         return self.vocoder_model.inference(vocoder_input.astype(np.float32))
 
     def tts(self, text: str = "", speaker_name: str = "", language_name: str = "", speaker_wav=None,
-            style_wav=None, reference_wav=None, split_sentences: bool = True, seed: int = 0,
-            **kwargs) -> List[float]:
+            style_wav=None, reference_wav=None, reference_speaker_name: str = None, split_sentences: bool = True,
+            seed: int = 0, **kwargs) -> List[float]:
         """The waveform of `text` as a list of float samples. `seed` seeds the
-        model's noise and, for a mel model without a vocoder, Griffin-Lim."""
+        model's noise and, for a mel model without a vocoder, Griffin-Lim.
+        With `reference_wav` (a path or samples) it is voice conversion
+        instead: that speech, spoken by `reference_speaker_name`, in the voice
+        of `speaker_name` (VITS with a posterior encoder)."""
         if not text and not reference_wav:
             raise ValueError("You need to define either `text` or a `reference_wav` to use the Coqui TTS API.")
         if reference_wav is not None:
-            raise NotImplementedError("voice conversion needs the posterior encoder, not ported yet (ROADMAP.md, M6)")
+            return self.transfer_voice(reference_wav, speaker_name, reference_speaker_name, speaker_wav, seed)
         if style_wav is not None:
             raise NotImplementedError("style references come with the models that read them (ROADMAP.md, M9)")
         start = time.time()
@@ -216,6 +223,28 @@ class Synthesizer:
                 wav = trim_silence(wav, self.tts_model.ap)
             wavs += list(np.asarray(wav, dtype=np.float32))
             wavs += [0.0] * SENTENCE_GAP
+        self._report(start, wavs)
+        return wavs
+
+    def transfer_voice(self, reference_wav, speaker_name: str = "", reference_speaker_name: str = None,
+                       speaker_wav=None, seed: int = 0) -> List[float]:
+        """Voice conversion of `reference_wav` from `reference_speaker_name`'s
+        voice (an id of the speaker table, or that speaker's mean d-vector)
+        into `speaker_name`'s; trimmed as `do_trim_silence` says."""
+        start = time.time()
+        speaker_id, d_vector = self.resolve_speaker(speaker_name, speaker_wav)
+        ref_id, ref_d_vector = None, None
+        if reference_speaker_name and self.speaker_manager is not None:
+            if getattr(self.tts_config, "use_d_vector_file", False):
+                ref_d_vector = self.speaker_manager.get_mean_embedding(reference_speaker_name, num_samples=None)
+            else:
+                ref_id = self.speaker_manager.name_to_id.get(reference_speaker_name)
+        ref = self.tts_model.ap.load_wav(reference_wav) if isinstance(reference_wav, str) else reference_wav
+        do_trim = bool(getattr(self.tts_config.audio, "do_trim_silence", False))
+        wav = transfer_voice(self.tts_model, self.tts_config, ref, speaker_id=speaker_id, d_vector=d_vector,
+                             reference_speaker_id=ref_id, reference_d_vector=ref_d_vector, do_trim_silence=do_trim,
+                             seed=seed)
+        wavs = list(np.asarray(wav, dtype=np.float32))
         self._report(start, wavs)
         return wavs
 

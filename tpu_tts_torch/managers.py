@@ -8,14 +8,17 @@ files are `{clip_name: {"name": speaker, "embedding": [...]}}`, stored as
 `.json`, a numpy-pickled `.npy` or a `.pth`. `d_vector_file` may be a list
 of such files, merged.
 
-Computing an embedding from a clip needs the speaker encoder, which is not
-ported: `init_encoder` and `compute_embedding_from_clip` raise (ROADMAP.md,
-M9). Ids from dataset samples, saving, random picks and the dataset
-balancers belong to training (M6).
+Training reads the rest: ids from dataset samples (`data_items`,
+`set_ids_from_data`), `save_ids_to_file`, `embeddings_by_names`, and the
+speaker, language and length balancers' sample weights
+(`_class_balancer_weights`:268-290). Computing an embedding from a clip
+needs the speaker encoder, which is not ported: `init_encoder` and
+`compute_embedding_from_clip` raise (ROADMAP.md, M9).
 """
 
+import bisect
 import json
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -33,13 +36,33 @@ def load_file(path: str):
     raise ValueError(f" [!] Unsupported file type {path}")
 
 
+def save_file(obj: Any, path: str):
+    if path.endswith(".json"):
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(obj, f, indent=2)
+    elif path.endswith(".pth"):
+        import torch
+
+        torch.save(obj, path)
+    else:
+        raise ValueError(f" [!] Unsupported file type {path}")
+
+
 class BaseIDManager:
-    """name ↔ id mapping from a stored file."""
+    """name ↔ id mapping from dataset samples or a stored file."""
 
     def __init__(self, id_file_path: str = ""):
         self.name_to_id: Dict[str, int] = {}
         if id_file_path:
             self.name_to_id = load_file(id_file_path)
+
+    def set_ids_from_data(self, items: List, parse_key: str) -> None:
+        """Ids 0… of the sorted distinct `parse_key` values of `items`."""
+        names = sorted({item[parse_key] for item in items if parse_key in item})
+        self.name_to_id = {name: i for i, name in enumerate(names)}
+
+    def save_ids_to_file(self, file_path: str) -> None:
+        save_file(self.name_to_id, file_path)
 
 
 class EmbeddingManager(BaseIDManager):
@@ -76,6 +99,9 @@ class EmbeddingManager(BaseIDManager):
             all_embeddings.update(load_file(path))
         self._set_embeddings(all_embeddings)
 
+    def embeddings_by_names(self) -> Dict[str, List]:
+        return self.embeddings_by_name
+
     def get_embeddings_by_name(self, idx: str) -> List[List]:
         return self.embeddings_by_name[idx]
 
@@ -97,14 +123,16 @@ class EmbeddingManager(BaseIDManager):
 
 
 class SpeakerManager(EmbeddingManager):
-    def __init__(self, d_vectors_file_path="", speaker_id_file_path: str = "", encoder_model_path: str = "",
-                 encoder_config_path: str = ""):
+    def __init__(self, data_items: Optional[List] = None, d_vectors_file_path="", speaker_id_file_path: str = "",
+                 encoder_model_path: str = "", encoder_config_path: str = ""):
         super().__init__(
             embedding_file_path=d_vectors_file_path,
             id_file_path=speaker_id_file_path,
             encoder_model_path=encoder_model_path,
             encoder_config_path=encoder_config_path,
         )
+        if data_items:
+            self.set_ids_from_data(data_items, parse_key="speaker_name")
 
     @property
     def num_speakers(self):
@@ -115,11 +143,14 @@ class SpeakerManager(EmbeddingManager):
         return list(self.name_to_id.keys())
 
     @staticmethod
-    def init_from_config(config) -> Optional["SpeakerManager"]:
-        """From a model's args (or a config): the speakers file of a speaker
-        embedding table, or the d-vector file(s)."""
+    def init_from_config(config, samples: Optional[List] = None) -> Optional["SpeakerManager"]:
+        """From a model's args (or a config): the speakers of the training
+        `samples`, or the speakers file, of a speaker embedding table; or
+        the d-vector file(s)."""
         speaker_manager = None
         if getattr(config, "use_speaker_embedding", False):
+            if samples:
+                speaker_manager = SpeakerManager(data_items=samples)
             if getattr(config, "speaker_file", None):
                 speaker_manager = SpeakerManager(speaker_id_file_path=config.speaker_file)
             if getattr(config, "speakers_file", None):
@@ -165,3 +196,30 @@ class LanguageManager(BaseIDManager):
                 return LanguageManager(language_ids_file_path=args.language_ids_file)
             return LanguageManager(config=config if hasattr(config, "datasets") else None)
         return None
+
+
+def _class_balancer_weights(names: np.ndarray) -> np.ndarray:
+    """Inverse-frequency sample weights of each item's class, L2-normalised."""
+    unique, counts = np.unique(names, return_counts=True)
+    per_class = 1.0 / counts
+    w = np.array([per_class[np.where(unique == n)[0][0]] for n in names], dtype=np.float64)
+    return w / np.linalg.norm(w)
+
+
+def get_speaker_balancer_weights(items: list) -> np.ndarray:
+    return _class_balancer_weights(np.array([item["speaker_name"] for item in items]))
+
+
+def get_language_balancer_weights(items: list) -> np.ndarray:
+    return _class_balancer_weights(np.array([item["language"] for item in items]))
+
+
+def get_length_balancer_weights(items: list, num_buckets: int = 10) -> np.ndarray:
+    """Audio lengths in `num_buckets` equal-width classes, each item weighted
+    by the inverse population of its class."""
+    lengths = np.array([item.get("audio_length") or len(item.get("text", "")) for item in items], dtype=np.float64)
+    max_length, min_length = int(lengths.max()), int(lengths.min())
+    step = int((max_length - min_length) / num_buckets) + 1
+    buckets_classes = [i + step for i in range(min_length, (max_length - step) + num_buckets + 1, step)]
+    bucket_names = np.array([buckets_classes[bisect.bisect_left(buckets_classes, n)] for n in lengths])
+    return _class_balancer_weights(bucket_names)

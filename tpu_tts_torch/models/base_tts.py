@@ -1,13 +1,16 @@
 """Base of the port's TTS models: config, audio settings, tokenizer, device,
 speaker/language managers and checkpoint loading (`utils/checkpoint.py`).
 
-Counterpart of `tpu_tts/models/base_tts.py`, with `get_data_loader`:137 of
-its training contract; the rest of the contract (`init_training`,
+Counterpart of `tpu_tts/models/base_tts.py`, with `on_init_start`:84 and
+`get_data_loader`:137 (with `_sampler_weights`:188) of its training
+contract: the speaker and language maps of the managers go into the
+collate, and the speaker, language and length balancers weight the
+loader's draws. The rest of the contract (`init_training`,
 `num_optimizers`, `optimizer_params`, `loss_fn`, `get_optimizer`) is the
-model's own (`models/vits.py`). The weighted samplers (speaker, language,
-length balancing) are not ported yet (ROADMAP.md, M6).
+model's own (`models/vits.py`).
 """
 
+import os
 from typing import Optional
 
 import torch
@@ -35,16 +38,29 @@ class BaseTTSModel:
             self.net.eval()
         return ckpt
 
+    def on_init_start(self, trainer):
+        """Write `speakers.pth` and `language_ids.json` beside the run's
+        config and point the config at them, so the run directory serves."""
+        for manager, name, keys in ((self.speaker_manager, "speakers.pth", ("speakers_file",)),
+                                    (self.language_manager, "language_ids.json", ("language_ids_file",))):
+            if manager is None or not manager.name_to_id:
+                continue
+            path = os.path.join(trainer.output_path, name)
+            manager.save_ids_to_file(path)
+            for cfg in (trainer.config, getattr(trainer.config, "model_args", None)):
+                for key in keys:
+                    if cfg is not None and cfg.has(key):
+                        setattr(cfg, key, path)
+            print(f" > `{name}` saved to {path}.", flush=True)
+
     def get_data_loader(self, config, assets, is_eval: bool, samples, verbose: bool, num_gpus: int = 1,
                         rank: int = 0):
-        """A `TTSDataLoader` over `samples`, length-filtered and sorted."""
+        """A `TTSDataLoader` over `samples`, length-filtered and sorted, with
+        the speaker, language and d-vector maps and the balancers' weights."""
         from tpu_tts_torch.data.dataset import TTSDataLoader, TTSDataset
 
         if num_gpus > 1:
             raise NotImplementedError("per-process data sharding comes with the data-parallel trainer (ROADMAP.md, M10)")
-        for key in ("use_speaker_weighted_sampler", "use_language_weighted_sampler", "use_length_weighted_sampler"):
-            if not is_eval and getattr(config, key, False):
-                raise NotImplementedError(f"`{key}` is not ported yet (ROADMAP.md, M6)")
         for key in ("compute_linear_spec", "compute_f0", "compute_energy", "use_attn_priors"):
             if getattr(config, key, False):
                 raise NotImplementedError(f"`{key}` comes with the models that read it (ROADMAP.md, M9)")
@@ -63,6 +79,10 @@ class BaseTTSModel:
             tokenizer=self.tokenizer,
             start_by_longest=config.start_by_longest,
             verbose=verbose,
+            speaker_id_mapping=self.speaker_manager.name_to_id if self.speaker_manager else None,
+            d_vector_mapping=(self.speaker_manager.embeddings_by_names()
+                              if self.speaker_manager and getattr(self.config, "use_d_vector_file", False) else None),
+            language_id_mapping=self.language_manager.name_to_id if self.language_manager else None,
         )
         dataset.preprocess_samples()
         return TTSDataLoader(
@@ -72,4 +92,27 @@ class BaseTTSModel:
             drop_last=not is_eval,
             seed=getattr(config, "training_seed", 0),
             num_workers=getattr(config, "num_eval_loader_workers" if is_eval else "num_loader_workers", 0),
+            weights=None if is_eval else sampler_weights(config, dataset.samples),
         )
+
+
+def sampler_weights(config, samples):
+    """The sum of the enabled balancers' weights (speaker, language, length),
+    each times its alpha; None when none is enabled."""
+    from tpu_tts_torch.managers import (
+        get_language_balancer_weights,
+        get_length_balancer_weights,
+        get_speaker_balancer_weights,
+    )
+
+    weights = None
+    for flag, fn, alpha in (("use_speaker_weighted_sampler", get_speaker_balancer_weights,
+                             "speaker_weighted_sampler_alpha"),
+                            ("use_language_weighted_sampler", get_language_balancer_weights,
+                             "language_weighted_sampler_alpha"),
+                            ("use_length_weighted_sampler", get_length_balancer_weights,
+                             "length_weighted_sampler_alpha")):
+        if getattr(config, flag, False):
+            w = fn(samples) * getattr(config, alpha, 1.0)
+            weights = w if weights is None else weights + w
+    return weights

@@ -29,7 +29,16 @@ the segment offsets' uniforms. They come from the `torch.Generator` it is
 given, or ready-made in `draws` (the tests hand it JAX's). Dropout draws from
 torch's default generator. MAS runs on the host (`ops/mas.py`). The D step's
 generator forward runs without gradients; the G step's discriminator passes
-run with its parameters frozen, the real half without gradients.
+run with its parameters frozen, the real half without gradients. A batch's
+`speaker_ids`, `d_vectors` and `language_ids` condition the training
+forward as they condition inference (multi-speaker, multilingual and
+d-vector training).
+
+Voice conversion (`voice_conversion`:357 and :747 in JAX) takes a source
+waveform through the posterior encoder and the forward flow with the source
+speaker's g, back through the reverse flow and the decoder (K1 on the card)
+with the target's. Loading a checkpoint that holds `posterior_encoder.*`
+(a trained one) builds the encoder for it.
 """
 
 import contextlib
@@ -215,6 +224,16 @@ class VitsNet(nn.Module):
                 "z_p": z_p, "m_q": m_q, "logs_q": logs_q, "y_mask": y_mask, "loss_duration": loss_duration,
                 "slice_ids": slice_ids}
 
+    def voice_conversion(self, spec, spec_lengths, g_src, g_tgt, noise):
+        """Source spectrogram `[B, C_spec, T]` → waveform `[B, 1, T·hop]` in
+        the target's voice: the posterior encoder and the forward flow with
+        g_src, the reverse flow with g_tgt, then the decoder with g_tgt.
+        `noise` `[B, C, T]` is the posterior's ε."""
+        z, _, _, y_mask = self.posterior_encoder(spec, spec_lengths, noise, g=g_src)
+        z_p = self.flow(z, y_mask, g=g_src)
+        z_hat = self.flow.reverse(z_p, y_mask, g=g_tgt)
+        return self.waveform_decoder(self.upsample_z(z_hat * y_mask), g=g_tgt)
+
     def infer_durations(self, x, x_lengths, length_scale: float = None, sdp_noise_scale: float = None,
                         generator: torch.Generator = None, speaker_ids=None, d_vectors=None,
                         language_ids=None) -> Dict:
@@ -284,8 +303,6 @@ class Vits(BaseTTSModel):
             raise NotImplementedError("use_speaker_encoder_as_loss needs the speaker encoder (ROADMAP.md, M9)")
         if a.encoder_sample_rate:
             raise NotImplementedError("training with encoder_sample_rate is not ported yet (ROADMAP.md, M6)")
-        if a.use_speaker_embedding or a.use_d_vector_file or a.use_language_embedding:
-            raise NotImplementedError("multi-speaker and multilingual VITS training is not ported yet (ROADMAP.md, M6)")
         if getattr(self.config, "mixed_precision", False):
             raise NotImplementedError("mixed-precision training is not ported yet (ROADMAP.md, M6)")
         if not hasattr(self.net, "posterior_encoder"):
@@ -320,6 +337,49 @@ class Vits(BaseTTSModel):
         state = {rename_old_weight_norm(k): v for k, v in state.items() if isinstance(v, torch.Tensor)}
         self.net.load_state_dict({k: v for k, v in state.items() if not k.startswith("disc.")}, strict=strict)
         self.disc.load_state_dict({k[5:]: v for k, v in state.items() if k.startswith("disc.")}, strict=strict)
+
+    def load_checkpoint(self, config, checkpoint_path: str, eval: bool = True, strict: bool = True):
+        """As `BaseTTSModel.load_checkpoint`; a checkpoint that holds the
+        posterior encoder (a trained one) builds it first, for voice
+        conversion, so a strict load takes its keys."""
+        from tpu_tts_torch.utils.checkpoint import load_net_checkpoint, read_checkpoint
+
+        ckpt = read_checkpoint(checkpoint_path)
+        sd = ckpt["model"] if isinstance(ckpt.get("model"), dict) else ckpt
+        if not hasattr(self.net, "posterior_encoder") and any(k.startswith("posterior_encoder.") for k in sd):
+            self.net.add_posterior_encoder()
+            self.net.posterior_encoder.to(self.device)
+        load_net_checkpoint(self.net, ckpt, strict=strict)
+        if eval:
+            self.net.eval()
+        return ckpt
+
+    def _speaker_cond(self, cond) -> torch.Tensor:
+        """g `[1, C, 1]` of a speaker id (a row of `emb_g`) or a d-vector."""
+        if isinstance(cond, (int, np.integer)):
+            return self.net.emb_g(self._long([int(cond)]))[:, :, None]
+        d = cond if isinstance(cond, torch.Tensor) else torch.as_tensor(np.asarray(cond, dtype=np.float32))
+        return d.to(device=self.device, dtype=torch.float32).reshape(1, -1, 1)
+
+    @torch.no_grad()
+    def voice_conversion(self, source_wav, speaker_cond_src, speaker_cond_tgt, seed: int = 0,
+                         noise: Optional[torch.Tensor] = None) -> np.ndarray:
+        """A source waveform spoken by `speaker_cond_src` → the same speech in
+        `speaker_cond_tgt`'s voice, float32 `[T_spec · hop]`. Each condition
+        is a speaker id or a d-vector. The posterior's ε is `noise` `[1, C,
+        T_spec]`, or drawn from a `torch.Generator` seeded with `seed` (JAX
+        draws it from `PRNGKey(0)`). The decoder runs through K1 on the card."""
+        if not hasattr(self.net, "posterior_encoder"):
+            raise ValueError("voice conversion needs the posterior encoder: load a trained checkpoint that holds it")
+        wav = source_wav if isinstance(source_wav, torch.Tensor) else torch.as_tensor(
+            np.asarray(source_wav, dtype=np.float32))
+        spec = self.spec_from_wav(wav.to(device=self.device, dtype=torch.float32).reshape(1, 1, -1))
+        if noise is None:
+            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+            noise = torch.randn(1, self.args.hidden_channels, spec.shape[2], generator=gen, device=self.device)
+        o = self.net.voice_conversion(spec, self._long([spec.shape[2]]), self._speaker_cond(speaker_cond_src),
+                                      self._speaker_cond(speaker_cond_tgt), noise.to(self.device))
+        return o[0, 0].float().cpu().numpy()
 
     def spec_from_wav(self, wav: torch.Tensor) -> torch.Tensor:
         """`[B, 1, T]` → the linear spectrogram `[B, C, T / hop]` (VITS framing)."""
@@ -437,7 +497,9 @@ class Vits(BaseTTSModel):
         return out
 
     @staticmethod
-    def init_from_config(config, device=None):
+    def init_from_config(config, device=None, samples=None):
+        """The model a config describes; a multi-speaker model's speaker ids
+        come from the training `samples` when given, else from its files."""
         from tpu_tts_torch.managers import LanguageManager, SpeakerManager
         from tpu_tts_torch.text.tokenizer import TTSTokenizer
 
@@ -448,7 +510,7 @@ class Vits(BaseTTSModel):
             )
         ap = AudioProcessor.init_from_config(config)
         tokenizer, new_config = TTSTokenizer.init_from_config(config)
-        speaker_manager = SpeakerManager.init_from_config(new_config.model_args)
+        speaker_manager = SpeakerManager.init_from_config(new_config.model_args, samples)
         language_manager = LanguageManager.init_from_config(new_config)
         return Vits(new_config, ap, tokenizer, device=device, speaker_manager=speaker_manager,
                     language_manager=language_manager)

@@ -32,6 +32,18 @@ Coqui checkpoint carries Coqui's decoder-side ResNet speaker encoder
 instead; that encoder is not ported (ROADMAP.md, M9), so such a model
 serves its bundled speakers (`speakers_xtts.pth`) and raises on
 `speaker_wav`.
+
+Fine-tuning the GPT (`tpu_tts/models/xtts.py`: `train_forward`:156,
+`load_dvae`:540, `_style_mel`/`_dvae_mel`:572-591, `loss_fn`:593,
+`on_init_start`:653, `get_data_loader`:659, `get_optimizer`:684): the
+weighted text CE plus the mel-code CE over Coqui's framing, one optimizer
+(AdamW) over the GPT with its conditioning encoder and perceiver. The
+HiFi-GAN decoder and `speaker_proj` are frozen and never run in a step,
+so K1 is never asked for a gradient. The targets come from the frozen
+DVAE's codes of the batch's wavs, computed on the device under `no_grad`,
+or ready-made (`audio_codes`). Without a `dvae.pth` the DVAE is drawn
+from seed 0, and without `mel_stats.pth` the mels are not normalised, as
+in JAX when no path is given.
 """
 
 import math
@@ -43,7 +55,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tpu_tts_torch.audio.torch_transforms import wav_to_mel
+from tpu_tts_torch.audio.torch_transforms import torchaudio_mel, wav_to_mel
 from tpu_tts_torch.configs.xtts_config import XttsArgs
 from tpu_tts_torch.layers.xtts.gpt import XttsGPT
 from tpu_tts_torch.layers.xtts.tokenizer import VoiceBpeTokenizer
@@ -91,6 +103,12 @@ def _check_room(cache, rows: int):
                          f"{cache.shape[2]}: ask for fewer tokens")
 
 
+def _masked_ce(logits, targets, mask):
+    """Cross-entropy over the positions `mask` keeps, their mean."""
+    nll = -torch.gather(torch.log_softmax(logits.float(), dim=-1), -1, targets[..., None])[..., 0]
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
 class XttsNet(nn.Module):
     """The inference modules of XTTS-v2; attribute names are the Coqui
     state-dict prefixes (`gpt.*`, `hifigan_decoder.waveform_decoder.*`), and
@@ -118,15 +136,49 @@ class XttsNet(nn.Module):
         )})
 
     # ---------------------------------------------------------- conditioning
+    def cond_latents(self, mel):
+        """Reference mel `[B, C_mel, T]` → gpt cond latents `[B, n, C]`."""
+        return self.gpt.conditioning_perceiver(self.gpt.conditioning_encoder(mel).transpose(1, 2))
+
     @torch.no_grad()
     def compute_conditioning(self, mel):
         """Reference mel `[B, C_mel, T]` → (gpt cond latents `[B, n, C]`,
         L2-normalised speaker embedding `[B, d]`)."""
-        latents = self.gpt.conditioning_perceiver(self.gpt.conditioning_encoder(mel).transpose(1, 2))
+        latents = self.cond_latents(mel)
         if self.use_ref_speaker_encoder:
             raise NotImplementedError(NO_SPEAKER_ENCODER)
         spk = self.speaker_proj(latents.mean(dim=1))
         return latents, spk / torch.clamp(torch.linalg.vector_norm(spk, dim=-1, keepdim=True), min=1e-12)
+
+    # -------------------------------------------------------------- training
+    def train_forward(self, mel_cond, text_tokens, text_lengths, audio_codes, code_lengths) -> Dict:
+        """The teacher-forced pass with Coqui's framing: the text gets the
+        stop token from `text_lengths` on, then `[start] + x` inputs and
+        `x + [stop]` targets; the codes past `code_lengths - 3` (the lengths
+        carry Coqui's +3) become the stop audio token before the same
+        framing; keys are masked over `[cond | text_in | code_in]` past each
+        segment's start + l tokens; the CE masks keep positions ≤ l.
+        Returns the text and mel logits, targets and masks."""
+        a = self.args
+        B, Tt = text_tokens.shape
+        Tm = audio_codes.shape[1]
+        dev = text_tokens.device
+        text_lengths, code_lengths = text_lengths[:, None], code_lengths[:, None]
+        text_ext = torch.where(torch.arange(Tt + 1, device=dev)[None] < text_lengths, F.pad(text_tokens, (0, 1)),
+                               a.gpt_stop_text_token)
+        text_in = F.pad(text_ext, (1, 0), value=a.gpt_start_text_token)
+        text_tar = F.pad(text_ext, (0, 1), value=a.gpt_stop_text_token)
+        code_ext = torch.where(torch.arange(Tm + 1, device=dev)[None] < code_lengths - 3, F.pad(audio_codes, (0, 1)),
+                               a.gpt_stop_audio_token)
+        code_in = F.pad(code_ext, (1, 0), value=a.gpt_start_audio_token)
+        code_tar = F.pad(code_ext, (0, 1), value=a.gpt_stop_audio_token)
+        text_keep = torch.arange(Tt + 2, device=dev)[None] <= text_lengths
+        code_keep = torch.arange(Tm + 2, device=dev)[None] <= code_lengths
+        attn_mask = torch.cat([torch.ones(B, a.num_cond_latents, dtype=torch.bool, device=dev), text_keep, code_keep],
+                              dim=1)
+        out = self.gpt(self.cond_latents(mel_cond), text_in, code_in, attn_mask=attn_mask)
+        return {"text_logits": out["text_logits"], "mel_logits": out["mel_logits"], "text_targets": text_tar,
+                "mel_targets": code_tar, "text_mask": text_keep.float(), "mel_mask": code_keep.float()}
 
     # ------------------------------------------------------------- inference
     def _step(self, cache, prompt_len: int, code, stopped, generator, i: int, temperature: float, top_k: int,
@@ -232,6 +284,8 @@ class Xtts(BaseTTSModel):
                     setattr(self.args, attr, int(tid))
         self.net = XttsNet(self.args).to(self.device).eval()
         self._speakers = None  # lazy speakers_xtts.pth (name → cloning latents)
+        self.dvae = None  # fine-tuning's code tokenizer (`load_dvae`)
+        self.mel_norms = None
 
     @property
     def output_sample_rate(self) -> int:
@@ -256,6 +310,149 @@ class Xtts(BaseTTSModel):
         if eval:
             self.net.eval()
         return ckpt
+
+    # ----------------------------------------------------------- fine-tuning
+    def load_dvae(self, checkpoint_path: str = "", mel_norms_path: str = ""):
+        """The frozen DVAE that turns the target wavs into codes: a released
+        `dvae.pth` when a path is given (here or `dvae_checkpoint`), else
+        drawn from seed 0 (flax's initialisers: LeCun-normal kernels, zero
+        biases, a N(0, 1) codebook); and the per-bin `mel_stats.pth`
+        divisors when that file exists."""
+        from tpu_tts_torch.layers.xtts.dvae import DiscreteVAE, load_dvae_state
+        from tpu_tts_torch.utils.checkpoint import read_checkpoint
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            dvae = DiscreteVAE(num_tokens=self.args.gpt_num_audio_tokens - 2)
+            with torch.no_grad():
+                for m in dvae.modules():
+                    if isinstance(m, nn.Conv1d):
+                        m.weight.normal_(0.0, (m.weight.shape[1] * m.weight.shape[2]) ** -0.5)
+                        m.bias.zero_()
+        path = checkpoint_path or self.args.dvae_checkpoint
+        if path:
+            load_dvae_state(dvae, read_checkpoint(path))
+        self.dvae = dvae.to(self.device).eval().requires_grad_(False)
+        self.mel_norms = None
+        mp = mel_norms_path or self.args.mel_norm_file
+        if mp and os.path.exists(str(mp)):
+            self.mel_norms = self._float(torch.load(mp, map_location="cpu", weights_only=True))
+
+    def _style_mel(self, wav):
+        """The conditioning mel `[B, 80, T / 256 + 1]`: fft 2048, hop 256, win 1024, fmax 8000."""
+        return torchaudio_mel(wav, fft_size=2048, hop_length=256, win_length=1024,
+                              sample_rate=self.args.input_sample_rate, num_mels=80, fmin=0.0, fmax=8000.0,
+                              mel_norms=self.mel_norms)
+
+    def _dvae_mel(self, wav):
+        """The DVAE's mel: fft 1024, hop 256, win 1024, fmax 8000."""
+        return torchaudio_mel(wav, fft_size=1024, hop_length=256, win_length=1024,
+                              sample_rate=self.args.dvae_sample_rate, num_mels=80, fmin=0.0, fmax=8000.0,
+                              mel_norms=self.mel_norms)
+
+    def targets(self, batch: Dict):
+        """(conditioning mel, codes, code lengths with Coqui's +3) of a batch:
+        ready-made (`cond_mel`, `audio_codes`, `code_lengths`), or from the
+        raw wavs through the mels and the frozen DVAE."""
+        if "audio_codes" in batch:
+            codes = batch["audio_codes"]
+            code_lengths = batch.get("code_lengths")
+            if code_lengths is None:
+                code_lengths = torch.full(codes.shape[:1], codes.shape[1] + 3, dtype=torch.long, device=codes.device)
+            return batch["cond_mel"], codes, code_lengths
+        if self.dvae is None:
+            raise RuntimeError("call load_dvae() before fine-tuning from raw wavs")
+        with torch.no_grad():
+            cond_mel = self._style_mel(batch["cond_wav"])
+            codes = self.dvae.get_codebook_indices(self._dvae_mel(batch["wav"]))
+        stride = self.args.gpt_code_stride
+        return cond_mel, codes, (batch["wav_lengths"] + stride - 1) // stride + 3
+
+    def loss_fn(self, batch: Dict, optimizer_idx: int = 0, generator: torch.Generator = None):
+        """(loss, logs): `gpt_loss_text_ce_weight` × the text CE plus
+        `gpt_loss_mel_ce_weight` × the mel-code CE, each a mean over its
+        kept positions. Nothing is drawn, so `generator` is unused."""
+        a = self.args
+        if not 0 <= a.gpt_start_text_token < a.gpt_number_text_tokens:
+            raise ValueError(f"gpt_start_text_token={a.gpt_start_text_token} is outside the text vocab "
+                             f"({a.gpt_number_text_tokens}): set it (or load a vocab with [START]/[STOP]); an "
+                             "out-of-range id would index past the text embedding")
+        cond_mel, codes, code_lengths = self.targets(batch)
+        codes = F.pad(codes, (0, 3))  # room for Coqui's +3 past the real codes
+        code_lengths = torch.clamp(code_lengths, max=codes.shape[1])
+        out = self.net.train_forward(cond_mel, batch["text_tokens"], batch["text_lengths"], codes, code_lengths)
+        ce_t = _masked_ce(out["text_logits"], out["text_targets"], out["text_mask"])
+        ce_c = _masked_ce(out["mel_logits"], out["mel_targets"], out["mel_mask"])
+        loss = a.gpt_loss_text_ce_weight * ce_t + a.gpt_loss_mel_ce_weight * ce_c
+        return loss, {"loss_text_ce": ce_t, "loss_mel_ce": ce_c}
+
+    def init_training(self):
+        if getattr(self.config, "mixed_precision", False):
+            raise NotImplementedError("mixed-precision training is not ported yet (ROADMAP.md, M6)")
+
+    def on_init_start(self, trainer):
+        """Before the first step: the frozen DVAE, and the base model
+        directory's `speakers_xtts.pth` and `vocab.json` copied beside the
+        run's checkpoints, so the run directory serves as a model directory."""
+        import shutil
+
+        if self.dvae is None:
+            self.load_dvae()
+        src = getattr(self.config, "model_dir", None)
+        if src and os.path.abspath(str(src)) != os.path.abspath(trainer.output_path):
+            for name in ("speakers_xtts.pth", "vocab.json"):
+                if os.path.exists(os.path.join(str(src), name)):
+                    shutil.copy(os.path.join(str(src), name), os.path.join(trainer.output_path, name))
+
+    def num_optimizers(self) -> int:
+        return 1
+
+    def optimizer_params(self, optimizer_idx: int = 0):
+        """The trained parameters: the GPT with its conditioning encoder and
+        perceiver (JAX's `optax.masked` set); the decoder and `speaker_proj`
+        stay frozen."""
+        return list(self.net.gpt.parameters())
+
+    def get_optimizer(self):
+        """[AdamW] at `lr` and `lr_scheduler`, betas, eps and weight decay
+        from `optimizer_params` (JAX's defaults 0.9/0.96, 1e-8, 1e-2)."""
+        from tpu_tts_torch.train.optimizers import get_optimizer, get_scheduler
+
+        c = self.config
+        params = dict(c.optimizer_params or {})
+        params = {"betas": params.get("betas", [0.9, 0.96]), "eps": params.get("eps", 1e-8),
+                  "weight_decay": params.get("weight_decay", 1e-2)}
+        schedule = get_scheduler(c.lr_scheduler, c.lr_scheduler_params or {}, c.lr)
+        return [get_optimizer("adamw", params, self.optimizer_params(0), c, schedule=schedule)]
+
+    def train(self, mode: bool = True):
+        self.net.train(mode)
+
+    def training_state_dict(self) -> Dict[str, torch.Tensor]:
+        return dict(self.net.state_dict())
+
+    def load_training_state(self, state: Dict[str, torch.Tensor], strict: bool = True):
+        """A port or Coqui XTTS-v2 state dict (a checkpoint's `model`)."""
+        from tpu_tts_torch.models.xtts_convert import load_xtts_state
+
+        load_xtts_state(self, state, strict=strict)
+
+    def get_data_loader(self, config, assets, is_eval, samples, verbose=True, num_gpus=1, rank=0):
+        """The fixed-shape fine-tuning loader over `samples`, tokenised by `self.bpe`."""
+        from tpu_tts_torch.layers.xtts.dataset import XttsDataLoader, XttsDataset
+
+        if num_gpus > 1:
+            raise NotImplementedError("per-process data sharding comes with the data-parallel trainer (ROADMAP.md, M10)")
+        a = self.args
+        seed = getattr(config, "training_seed", 0)
+        dataset = XttsDataset(samples=samples, tokenizer=self.bpe, sample_rate=a.input_sample_rate,
+                              max_text_length=a.max_text_length, max_wav_length=a.max_wav_length,
+                              min_conditioning_length=a.min_conditioning_length,
+                              max_conditioning_length=a.max_conditioning_length, is_eval=is_eval, seed=seed)
+        return XttsDataLoader(dataset, batch_size=config.eval_batch_size if is_eval else config.batch_size,
+                              shuffle=not is_eval, drop_last=not is_eval, seed=seed,
+                              num_workers=getattr(config, "num_eval_loader_workers" if is_eval else
+                                                  "num_loader_workers", 0))
 
     # ----------------------------------------------------- bundled speakers
     def _bundled_speakers(self) -> Dict:

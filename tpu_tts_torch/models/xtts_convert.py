@@ -7,7 +7,10 @@ on the modules inference runs (a Coqui state dict → the JAX tree): Dense
 kernels `[in, out]` become `nn.Linear`/1×1-conv weights `[out, in(, 1)]`,
 except GPT-2's `Conv1D`, which keeps `[in, out]`; embeddings become
 `.weight`; LayerNorm `scale` becomes `.weight`, GroupNorm's too; the decoder
-goes through the VITS bridge's weight-norm rules.
+goes through the VITS bridge's weight-norm rules. `dvae_params_from_flax`
+does the same for the fine-tuning DVAE (`tpu_tts/layers/xtts/dvae.py`):
+conv kernels `[k, in, out]` become `[out, in, k]`, Dense kernels 1×1 convs,
+under Coqui's `dvae.pth` names.
 
 `load_xtts_checkpoint(model, path)` loads a `.pth` of the port's state dict
 or a Coqui XTTS-v2 checkpoint (`{"model": ...}` or flat; the key names are
@@ -100,6 +103,34 @@ def params_from_flax(tree) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
+def dvae_params_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX `DiscreteVAE` params → the port's `DiscreteVAE` state dict."""
+    flat = _flatten(tree)
+    n_layers = len({k.split("/")[0] for k in flat if k.startswith("enc_conv_")})
+    n_res = len({k.split("/")[0] for k in flat if k.startswith("enc_res_")})
+    rules = [(r"^enc_conv_(\d+)/conv$", lambda m: f"encoder.{m[1]}.0"),
+             (r"^enc_res_(\d+)/c(\d)$", lambda m: f"encoder.{n_layers + int(m[1])}.net.{m[2]}"),
+             (r"^enc_out$", lambda m: f"encoder.{n_layers + n_res}"),
+             (r"^dec_in$", lambda m: "decoder.0"),
+             (r"^dec_res_(\d+)/c(\d)$", lambda m: f"decoder.{1 + int(m[1])}.net.{m[2]}"),
+             (r"^dec_up_(\d+)/conv$", lambda m: f"decoder.{1 + n_res + int(m[1])}.0.conv"),
+             (r"^dec_out$", lambda m: f"decoder.{1 + n_res + n_layers}")]
+    sd = {}
+    for path, arr in flat.items():
+        if path == "embed":
+            sd["codebook.embed"] = arr
+            continue
+        module, leaf = path.rsplit("/", 1)
+        name = next((fn(m) for pat, fn in rules for m in [re.match(pat, module)] if m), None)
+        if name is None:
+            raise KeyError(f"no rule maps the JAX DVAE param {path}")
+        if leaf == "kernel":
+            sd[f"{name}.weight"] = arr.T[:, :, None] if arr.ndim == 2 else np.transpose(arr, (2, 1, 0))
+        else:
+            sd[f"{name}.{leaf}"] = arr
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
 def _split_plain_weight_norm(sd: Dict[str, torch.Tensor], wanted) -> None:
     """A plain `X.weight` where the net wants a weight-norm pair → (g, v),
     g the norm over every dim but 0, so g·v/‖v‖ is the weight."""
@@ -113,20 +144,27 @@ def _split_plain_weight_norm(sd: Dict[str, torch.Tensor], wanted) -> None:
 
 
 def load_xtts_checkpoint(model, checkpoint_path: str, strict: bool = True) -> Dict:
-    """Load a port or Coqui XTTS-v2 `.pth` into `model.net`, rebuilding the
-    net without `speaker_proj` when the checkpoint carries Coqui's speaker
-    encoder instead."""
+    """Load a port or Coqui XTTS-v2 `.pth` into `model.net` (`load_xtts_state`)."""
+    ckpt = read_checkpoint(checkpoint_path)
+    load_xtts_state(model, ckpt["model"] if isinstance(ckpt.get("model"), dict) else ckpt, strict=strict)
+    return ckpt
+
+
+def load_xtts_state(model, state: Dict, strict: bool = True) -> None:
+    """Load a port or Coqui XTTS-v2 state dict into `model.net`, rebuilding
+    the net without `speaker_proj` when it carries Coqui's speaker encoder
+    instead."""
     from tpu_tts_torch.models.xtts import XttsNet
 
-    ckpt = read_checkpoint(checkpoint_path)
-    sd = {k: v for k, v in (ckpt["model"] if isinstance(ckpt.get("model"), dict) else ckpt).items()
-          if isinstance(v, torch.Tensor)}
+    sd = {k: v for k, v in state.items() if isinstance(v, torch.Tensor)}
     if "gpt.conditioning_perceiver.latents" not in sd:
         raise NotImplementedError("this checkpoint is the legacy (non-perceiver) XTTS variant: only XTTS-v2 "
                                   "checkpoints (gpt_use_perceiver_resampler=True) are supported")
     ref_encoder = "speaker_proj.weight" not in sd and any(k.startswith("hifigan_decoder.speaker_encoder.") for k in sd)
     if ref_encoder != model.net.use_ref_speaker_encoder:
+        gpt = model.net.gpt  # kept, so an optimizer over its parameters stays valid
         model.net = XttsNet(model.args, ref_speaker_encoder=ref_encoder).to(model.device)
+        model.net.gpt = gpt
     net = model.net
     wanted = net.state_dict()
     _split_plain_weight_norm(sd, wanted)
@@ -134,4 +172,3 @@ def load_xtts_checkpoint(model, checkpoint_path: str, strict: bool = True) -> Di
     if bias not in sd:
         sd[bias] = torch.zeros(wanted[bias].shape, dtype=wanted[bias].dtype)
     net.load_state_dict(net_state_dict(sd, net), strict=strict)
-    return ckpt

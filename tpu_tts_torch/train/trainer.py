@@ -9,7 +9,9 @@ forward and its own draws. The model's side of the contract:
 `init_training()`, `num_optimizers()`, `get_optimizer()` (one
 `TrainOptimizer` per index), `loss_fn(batch, optimizer_idx, generator)`,
 `get_data_loader(...)`, `train(mode)`, `training_state_dict()` and
-`load_training_state(state, strict)`.
+`load_training_state(state, strict)`, and optionally
+`on_init_start(trainer)`, called once before the first step when there
+are training samples (JAX's `:152`).
 
 Randomness: the model's draws come from one `torch.Generator` on the
 device, seeded with `training_seed`; dropout draws from torch's default
@@ -92,6 +94,8 @@ class Trainer:
         if self.device != model.device:
             raise ValueError(f"the model is on {model.device}, the trainer was asked for {self.device}")
         model.init_training()
+        if hasattr(model, "on_init_start") and self.train_samples:
+            model.on_init_start(self)  # files beside the run's checkpoints, frozen parts the loss reads
         seed = getattr(config, "training_seed", 54321) or 54321
         torch.manual_seed(seed)  # dropout's generators, the CPU's and every card's
         self.generator = torch.Generator(device=self.device).manual_seed(seed)

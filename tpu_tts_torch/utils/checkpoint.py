@@ -63,8 +63,9 @@ def net_state_dict(ckpt: Dict, net: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_net_checkpoint(net: torch.nn.Module, checkpoint_path: str, strict: bool = True) -> Dict:
-    """Load a `.pth` file (the port's `state_dict` or Coqui's format) into `net`."""
-    ckpt = read_checkpoint(checkpoint_path)
+def load_net_checkpoint(net: torch.nn.Module, checkpoint, strict: bool = True) -> Dict:
+    """Load a `.pth` file (the port's `state_dict` or Coqui's format), or the
+    dict read from one, into `net`."""
+    ckpt = checkpoint if isinstance(checkpoint, dict) else read_checkpoint(checkpoint)
     net.load_state_dict(net_state_dict(ckpt, net), strict=strict)
     return ckpt
