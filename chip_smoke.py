@@ -100,12 +100,25 @@ result line:
    (`train overfit`);
    the trained checkpoint served by `/api/tts` through K1, 72 launches,
    within 1e-3 of the plain MRF (`train serve`);
+12a. mixed precision (the recipes' `mixed_precision=True`, bfloat16 compute
+   on float32 parameters): one D and one G step of the tiny VITS on the card
+   against the CPU, losses within 2e-2 relative, every parameter float32
+   (`train mixed card vs cpu`); the default full-width VITS at the LJSpeech
+   recipe's settings on phase 12's clips for 2 epochs of 2 steps: ms a step
+   (D, G, updates), peak memory, finite losses, every gradient nonzero at
+   step 2, K1 launched no time, beside phase 12's float32 step (`train mixed
+   steps`); 2 steps at the VCTK recipe's settings, a speaker embedding over
+   10 speakers (`train mixed vctk`); the bfloat16-trained checkpoint served
+   through K1, 72 launches, within 1e-3 of the plain MRF (`train mixed
+   serve`); the phase's wall time;
 13. K1 at the XTTS decoder's chunk shapes (34 and 104 decoder frames, at
    B = 1 and 8) against the plain MRF, with its time, the plain time and
    the bound (`kernel hifigan_mrf xtts chunk ...` lines);
 14. XTTS-v2 GPT fine-tuning: the full-width DVAE (seed 0) on the card
    against the CPU, and one fine-tuning loss and backward of a tiny XTTS on
-   the card against the CPU (`xtts train card vs cpu`); then the default
+   the card against the CPU (`xtts train card vs cpu`), and the same at
+   mixed precision through the trainer's generic bfloat16 cast from the raw
+   wavs, losses within 2e-2 (`xtts train mixed card vs cpu`); then the default
    full-width XTTS-v2 (seed 0) saved as a model directory and fine-tuned
    through `Trainer.fit` (`restore_path` its checkpoint) at the recipe's
    batch 3 and settings on clips of 2–11.6 s written from a seed, token ids
@@ -128,7 +141,26 @@ result line:
    reference_speaker_name=)`: 72 K1 launches, within 1e-3 of the plain MRF,
    the source's spectrogram frames × hop long, another target speaker
    another waveform (`vc serve`);
-16. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
+16. the speaker encoder: the VCTK ResNet recipe's encoder (64 → 512, layers
+   (3, 4, 6, 3), filters 32–256, 16 kHz, 64 mels) trained through
+   `bin/train_encoder` for 3 steps of 100 speakers × 4 crops of 2 s on
+   clips in VCTK's layout, one seeded voice a speaker (`encoder train`);
+   its step on one batch timed with CUDA events, peak memory, 20 steps on
+   that batch lowering the loss (`encoder steps`); a tiny ResNet and LSTM
+   on the card against the CPU within 1e-4 (`encoder card vs cpu`);
+   `bin/compute_embeddings` over the 400 clips into a d-vector file and
+   `bin/eval_encoder`'s intra/inter-speaker margin (`encoder embeddings`);
+17. voice cloning through K1: a full-width XTTS-v2 from seed 0 in Coqui's
+   layout (the decoder-side ResNet speaker encoder in place of
+   `speaker_proj`) saved as a model directory and served with
+   `--max_streams 8`: one `/api/tts_stream?speaker_wav=` stream, 72 K1
+   launches a chunk, the decoder within 1e-3 of the plain MRF, two
+   speakers' wavs giving other embeddings and waveforms, the ms to
+   condition on a new wav (`xtts clone`); then a full-width d-vector VITS
+   (ResBlock1, phase 16's d-vector file) with phase 16's encoder attached
+   by `init_encoder`, one `/api/tts?speaker_wav=` request of 72 K1
+   launches (`dvector vits speaker_wav`);
+18. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
 
 Each serving phase's requests are a main path: the launch counts are set to
 0 just before them and read just after. Phases 5 and 6 take the locked
@@ -1100,7 +1132,7 @@ def xtts_token_ids(text: str, lang: str = "en") -> list:
     return [XTTS_CHARS.index(c) + 1 for c in text.lower() if c in XTTS_CHARS]
 
 
-def save_xtts(tmp: str, device: str = "cuda", config=None, stop_bias: bool = True) -> dict:
+def save_xtts(tmp: str, device: str = "cuda", config=None, stop_bias: bool = True, ref_encoder: bool = False) -> dict:
     """A full-width XTTS-v2 (default `XttsArgs`: GPT 30 × 1024, 16 heads,
     perceiver of 32 latents, HiFi-GAN 512 → 32 with `conds`) with weights
     from seed 0 on the card, saved as a model directory: `config.json`, a
@@ -1108,18 +1140,23 @@ def save_xtts(tmp: str, device: str = "cuda", config=None, stop_bias: bool = Tru
     speakers whose latents the model computes from seeded 3 s wavs; plus a
     cloning wav for `speaker_wav`. The decoder is redrawn with unit gain
     (`unit_gain_decoder`), and with `stop_bias` the stop code's head bias is
-    set to -1e4, so a random model runs every stream to its token budget."""
+    set to -1e4, so a random model runs every stream to its token budget.
+    With `ref_encoder` the net is Coqui's layout: the decoder-side ResNet
+    speaker encoder (`hifigan_decoder.speaker_encoder.*`) in place of
+    `speaker_proj`."""
     import numpy as np
     import scipy.io.wavfile
     import torch
 
     from tpu_tts_torch.configs.xtts_config import XttsConfig
-    from tpu_tts_torch.models.xtts import Xtts
+    from tpu_tts_torch.models.xtts import Xtts, XttsNet
 
     t0 = time.perf_counter()
     torch.manual_seed(SEED)
     config = XttsConfig() if config is None else config
     model = Xtts(config, device=device)
+    if ref_encoder:
+        model.net = XttsNet(model.args, ref_speaker_encoder=True).to(device).eval()
     unit_gain_decoder(model.net.hifigan_decoder["waveform_decoder"])
     if stop_bias:
         with torch.no_grad():
@@ -1540,8 +1577,8 @@ def write_clips(root: str, seed: int, n_train: int, n_eval: int, seconds_range, 
 
 def train_config(root: str, out: str, epochs: int):
     """The LJSpeech VITS recipe's settings (`recipes/ljspeech/vits_tts/
-    train_vits.py`) at the default full width, in float32 (the recipe's
-    mixed precision is not ported) and with the `en_rules` phonemes (no
+    train_vits.py`) at the default full width, in float32 (phase a sets the
+    recipe's `mixed_precision`) and with the `en_rules` phonemes (no
     espeak on the card's machine)."""
     from tpu_tts_torch.config.shared_configs import BaseDatasetConfig
     from tpu_tts_torch.configs.vits_config import VitsConfig
@@ -1659,14 +1696,18 @@ def randomize_module(module, gen):
                 p.copy_(0.1 * torch.randn(p.shape, generator=gen))
 
 
-def check_train_step_card_vs_cpu() -> dict:
+def check_train_step_card_vs_cpu(mixed: bool = False) -> dict:
     """One D step and one G step at a tiny config (hidden 32, HiFi-GAN 32 →
     8 over ×4 ×4) on the card against the same step on the CPU: the same
     weights, batch and draws; losses within TRAIN_STEP_TOL[0] relative, each
     gradient within TRAIN_STEP_TOL[1] of its tensor's largest |gradient|
     (plus 1e-6 for gradients that are 0 analytically). Float32 with TF32 off
     on both; the rest is the order of the sums (cuDNN against the CPU's
-    kernels)."""
+    kernels). With `mixed` (bfloat16 compute on float32 parameters): losses
+    within MP_LOSS_TOL relative, every parameter float32 on both devices;
+    the gradients' relative L2 distance is printed, not bounded (bfloat16
+    rounds cuDNN's sums and the CPU's differently, and a GAN step's
+    gradients carry that noise, `tests/test_torch_port_precision.py`)."""
     import numpy as np
     import torch
 
@@ -1680,7 +1721,7 @@ def check_train_step_card_vs_cpu() -> dict:
                 resblock_dilation_sizes_decoder=[[1, 3], [1, 3]], periods_multi_period_discriminator=[2],
                 dropout_p_text_encoder=0.0, dropout_p_duration_predictor=0.0)
     config = VitsConfig(model_args=VitsArgs(**args), audio=VitsAudioConfig(fft_size=64, win_length=64, hop_length=16,
-                                                                           num_mels=20))
+                                                                           num_mels=20), mixed_precision=mixed)
     models = {}
     for dev in ("cpu", "cuda"):
         m = Vits(config, device=dev)
@@ -1701,8 +1742,9 @@ def check_train_step_card_vs_cpu() -> dict:
     batch = {"text_input": x, "text_lengths": np.array([T_x, 7]), "mel_lengths": np.array([T_spec, 18]), "waveform": wav}
     draws = {"posterior": rng.standard_normal((B, 32, T_spec)).astype(np.float32),
              "sdp": rng.standard_normal((B, 2, T_x)).astype(np.float32), "segments": rng.uniform(size=B).astype(np.float32)}
-    out = {"loss_tol": TRAIN_STEP_TOL[0], "grad_tol": TRAIN_STEP_TOL[1]}
-    worst_loss, worst_grad = 0.0, 0.0
+    loss_tol = MP_LOSS_TOL if mixed else TRAIN_STEP_TOL[0]
+    out = {"mixed_precision": mixed, "loss_tol": loss_tol, "grad_tol": None if mixed else TRAIN_STEP_TOL[1]}
+    worst_loss, worst_grad, l2 = 0.0, 0.0, {}
     for idx in (0, 1):
         res = {}
         for dev, m in models.items():
@@ -1724,10 +1766,13 @@ def check_train_step_card_vs_cpu() -> dict:
         for n in gc:
             scale = float(gc[n].abs().max())
             worst_grad = max(worst_grad, (float((gc[n] - gg[n]).abs().max()) - 1e-6) / max(scale, 1e-12))
+        vc, vg = torch.cat([gc[n].flatten() for n in gc]), torch.cat([gg[n].flatten() for n in gc])
+        l2[idx] = float((vc - vg).norm() / vc.norm())
         out[f"losses_{idx}"] = {k: [lc[k], lg[k]] for k in lc}
-    out.update(max_loss_rel_err=worst_loss, max_grad_err_of_max=worst_grad)
-    log("train card vs cpu " + json.dumps(out))
-    if not (worst_loss <= TRAIN_STEP_TOL[0] and worst_grad <= TRAIN_STEP_TOL[1]):
+    dtypes = sorted({str(p.dtype) for m in models.values() for p in list(m.net.parameters()) + list(m.disc.parameters())})
+    out.update(max_loss_rel_err=worst_loss, max_grad_err_of_max=worst_grad, grad_l2_rel_err=l2, param_dtypes=dtypes)
+    log(("train mixed card vs cpu " if mixed else "train card vs cpu ") + json.dumps(out))
+    if not worst_loss <= loss_tol or dtypes != ["torch.float32"] or not (mixed or worst_grad <= TRAIN_STEP_TOL[1]):
         raise AssertionError(f"the tiny train step on the card disagrees with the CPU: {out}")
     return out
 
@@ -1764,7 +1809,7 @@ def check_mrf_refuses_gradient() -> dict:
     return out
 
 
-def serve_trained(paths: dict, device: str = "cuda") -> dict:
+def serve_trained(paths: dict, device: str = "cuda", label: str = "train serve") -> dict:
     """The trained checkpoint through the port's `Synthesizer` and `/api/tts`
     (the locked path): one request of one sentence, its K1 launches counted
     (72 expected), its WAV checked; then the served model's waveform against
@@ -1808,7 +1853,7 @@ def serve_trained(paths: dict, device: str = "cuda") -> dict:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
-    log("train serve " + json.dumps(out))
+    log(f"{label} " + json.dumps(out))
     if status != 200 or launches != 72 or not np.isfinite(pcm).all() or pcm.size == 0 \
             or not torch.isfinite(got).all() or out["max_abs_err_vs_plain"] > 1e-3 or out["rms"] == 0:
         raise AssertionError(f"the trained checkpoint did not serve through K1: {out}")
@@ -2291,6 +2336,7 @@ def xtts_train_phase(tmp: str, device: str = "cuda") -> dict:
     config = xtts_train_config(root, out, base, XTTS_TRAIN_EPOCHS)
     train_samples, eval_samples = load_tts_samples(config.datasets, eval_split=True)
     tiny = check_xtts_train_card_vs_cpu(train_samples)
+    tiny_mixed = check_xtts_mixed_card_vs_cpu(train_samples)
     save_xtts_base(base, device)
     base_ckpt = os.path.join(base, "model.pth")
 
@@ -2359,7 +2405,8 @@ def xtts_train_phase(tmp: str, device: str = "cuda") -> dict:
                            device)
     subprocess.run(["rm", "-rf", os.path.join(tmp, "overfit")], check=True)
     served = serve_finetuned(out, device)
-    return {**row, "tiny": tiny, "resume_max_rel_err": rel, "overfit": overfit, "served": served}
+    return {**row, "tiny": tiny, "tiny_mixed": tiny_mixed, "resume_max_rel_err": rel, "overfit": overfit,
+            "served": served}
 
 
 # ---------------------------------------------------------------- multilingual VITS training, voice conversion
@@ -2528,6 +2575,517 @@ def serve_voice_conversion(checkpoint: str, config_path: str, source_wav: str, d
     return out
 
 
+# ---------------------------------------------------------------- mixed precision (phases a, b)
+MP_LOSS_TOL = 2e-2  # bfloat16 compute, card against CPU: the tiny steps' losses, relative
+MP_TRAIN_EPOCHS = 2  # 2 steps an epoch at batch 32
+MP_COMPARE = ("step_ms", "d_substep_ms", "g_substep_ms", "optimizer_ms", "wall_ms", "peak_allocated_gb")
+
+
+def fit_and_probe(config, train_samples, eval_samples, out: str, device: str = "cuda", model=None,
+                  profile: str = "") -> dict:
+    """`Trainer.fit` of `config` (its model from seed 0 with the decoder at
+    unit gain unless given) under `TrainProbe`: the mean of each timed
+    quantity over the steps after the first, peak memory, K1's launches,
+    the first and last losses; every loss must be finite and every
+    parameter have a nonzero gradient at step 2. With `profile`, one more
+    step is profiled under that name."""
+    import math
+
+    import torch
+
+    from tpu_tts_torch.models.vits import Vits
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.train import Trainer, TrainerArgs
+
+    if model is None:
+        torch.manual_seed(SEED)
+        model = Vits.init_from_config(config, device=device, samples=train_samples)
+        unit_gain_decoder(model.net.waveform_decoder)
+    trainer = Trainer(TrainerArgs(device=device), model.config, out, model=model, train_samples=train_samples,
+                      eval_samples=eval_samples)
+    probe = TrainProbe(trainer)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        hifigan_mrf.launches = 0
+        t0 = time.perf_counter()
+        trainer.fit()
+        fit_s = time.perf_counter() - t0
+        launches = hifigan_mrf.launches
+        steps = list(probe.steps)
+    finally:
+        probe.close()
+    if profile:
+        batch = next(iter(model.get_data_loader(trainer.config, {}, is_eval=False, samples=train_samples,
+                                                verbose=False)))
+        profile_call(lambda: trainer.train_step(batch), {"model": "vits", "call": profile,
+                                                         "batch": config.batch_size}, top=10)
+    timed = [probe.step_ms(s) for s in steps[1:]]  # the first step warms cuDNN up
+    row = {"steps": len(steps), "batch": config.batch_size, "fit_s": fit_s,
+           **{k: sum(t[k] for t in timed) / len(timed) for k in timed[0]},
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 2**30, "hifigan_mrf_launches": launches,
+           "losses_first": TrainProbe.losses(steps[0]), "losses_last": TrainProbe.losses(steps[-1]),
+           "param_dtypes": sorted({str(p.dtype) for p in list(model.net.parameters()) + list(model.disc.parameters())}),
+           "optimizer_state_dtypes": sorted({str(v.dtype) for opt in trainer.optimizers
+                                             for st in opt.inner.state.values() for v in st.values()
+                                             if torch.is_tensor(v)})}
+    bad = [k for s in steps for k, v in TrainProbe.losses(s).items() if not math.isfinite(v)]
+    if bad or probe.zero_grads is None or probe.zero_grads:
+        raise AssertionError(f"non-finite losses {bad[:5]} or parameters without a gradient "
+                             f"{(probe.zero_grads or ['(none checked)'])[:8]}")
+    if launches != 0 or row["param_dtypes"] != ["torch.float32"] or row["optimizer_state_dtypes"] != ["torch.float32"]:
+        raise AssertionError(f"training launched K1 or left float32: {row}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return row
+
+
+def mixed_train_phase(tmp: str, f32: dict, device: str = "cuda") -> dict:
+    """Phase a, mixed precision (the recipes' `mixed_precision=True`): the
+    tiny D and G steps in bfloat16 on the card against the CPU; the default
+    full-width VITS at the LJSpeech recipe's settings with the bfloat16
+    compute dtype, on phase 12's 64 clips (decoder at unit gain), through
+    `Trainer.fit` for MP_TRAIN_EPOCHS epochs of 2 steps: ms a step (D, G,
+    updates), peak memory, finite losses, every gradient nonzero at step 2,
+    no K1 launch, printed beside phase 12's float32 step of this run
+    (`train mixed steps`); 2 steps at the VCTK recipe's settings (a speaker
+    embedding over the clips' 10 round-robin speakers, `train mixed vctk`);
+    the bfloat16-trained checkpoint served by `/api/tts` through K1, 72
+    launches, within 1e-3 of the plain MRF (`train mixed serve`)."""
+    from tpu_tts_torch.data import load_tts_samples
+    from tpu_tts_torch.train.checkpoint import get_last_checkpoint
+
+    t0 = time.perf_counter()
+    tiny = check_train_step_card_vs_cpu(mixed=True)
+    root, out = os.path.join(tmp, "data"), os.path.join(tmp, "run_mixed")
+    config = train_config(root, out, MP_TRAIN_EPOCHS)
+    config.mixed_precision = True
+    train_samples, eval_samples = load_tts_samples(config.datasets, eval_split=True)
+    row = fit_and_probe(config, train_samples, eval_samples, out, device,
+                        profile="one bfloat16 training step (D then G)")
+    log("train mixed steps " + json.dumps({"bfloat16": row, "float32": {k: f32[k] for k in MP_COMPARE}}))
+
+    vctk = train_config(root, os.path.join(tmp, "run_vctk"), 1)
+    vctk.mixed_precision = True
+    vctk.use_speaker_embedding = vctk.model_args.use_speaker_embedding = True
+    vctk.datasets[0].formatter = "ljspeech_test"
+    vctk_train, vctk_eval = load_tts_samples(vctk.datasets, eval_split=True)
+    vctk_row = fit_and_probe(vctk, vctk_train, vctk_eval, vctk.output_path, device)
+    log("train mixed vctk " + json.dumps(vctk_row))
+    subprocess.run(["rm", "-rf", vctk.output_path], check=True)
+
+    served = serve_trained({"model_path": get_last_checkpoint(out)[0], "config_path": os.path.join(out, "config.json")},
+                           device, label="train mixed serve")
+    wall = time.perf_counter() - t0
+    log(f"train mixed phase wall: {wall:.1f} s")
+    return {**row, "tiny": tiny, "vctk": vctk_row, "served": served, "phase_wall_s": wall}
+
+
+def check_xtts_mixed_card_vs_cpu(samples) -> dict:
+    """Phase b: one fine-tuning loss and backward of a tiny XTTS (XTTS_TINY)
+    through the trainer's generic bfloat16 cast, from the raw wavs (the
+    DVAE float32 outside the cast) on the card against the CPU: losses
+    within MP_LOSS_TOL relative, the parameters float32; the gradients'
+    relative L2 distance printed."""
+    import torch
+
+    from tpu_tts_torch.configs.xtts_config import XttsArgs
+    from tpu_tts_torch.train import precision
+
+    models = tiny_xtts_pair(XttsArgs(**XTTS_TINY))
+    for m in models.values():
+        m.load_dvae()
+        m.bpe.encode = xtts_token_ids
+    batch = xtts_batch(models["cpu"], samples)
+    res = {}
+    for dev, m in models.items():
+        m.train(True)
+        b = {k: v.to(m.device) if torch.is_tensor(v) else v for k, v in batch.items()}
+        params16, batch16 = precision.autocast_args(dict(m.net.named_parameters()), b)
+        loss, logs = precision.call_cast(m.net, params16, m.loss_fn, batch16, 0)
+        loss.float().backward()
+        res[dev] = ({"loss": float(loss), **{k: float(v) for k, v in logs.items()}},
+                    {n: p.grad.cpu() for n, p in m.net.named_parameters() if p.grad is not None})
+    (lc, gc), (lg, gg) = res["cpu"], res["cuda"]
+    worst = max(abs(lc[k] - lg[k]) / max(1.0, abs(lc[k])) for k in lc)
+    vc, vg = torch.cat([gc[n].flatten() for n in gc]), torch.cat([gg[n].flatten() for n in gc])
+    dtypes = sorted({str(p.dtype) for m in models.values() for p in m.net.parameters()})
+    out = {"losses": {k: [lc[k], lg[k]] for k in lc}, "max_loss_rel_err": worst, "loss_tol": MP_LOSS_TOL,
+           "grad_l2_rel_err": float((vc - vg).norm() / vc.norm()), "param_dtypes": dtypes}
+    log("xtts train mixed card vs cpu " + json.dumps(out))
+    if not worst <= MP_LOSS_TOL or dtypes != ["torch.float32"] or set(gc) != set(gg):
+        raise AssertionError(f"the tiny mixed-precision fine-tune step on the card disagrees with the CPU: {out}")
+    return out
+
+
+# ---------------------------------------------------------------- the speaker encoder (phase c)
+ENC_SPEAKERS, ENC_UTTERS, ENC_VOICE_S = 100, 4, 2.0  # the VCTK ResNet recipe's batch: 100 speakers × 4 crops of 2 s
+ENC_CLIP_S = 2.5  # each clip; the crops start anywhere in it
+ENC_EPOCHS = 3  # ENC_UTTERS clips a speaker: one batch an epoch
+ENC_TIMED_STEPS = 5
+ENC_OVERFIT_STEPS = 20
+ENC_CARD_TOL = 1e-4  # a tiny encoder's embedding on the card against the CPU
+
+
+def speaker_clip(rng, voice: dict, sr: int, dur: float):
+    """`dur` seconds of one speaker's voice: 12 harmonics of an f0 that
+    wanders ±8 % around the speaker's, amplitudes falling as h^-tilt and
+    raised around the speaker's formant, a syllable envelope and noise."""
+    import numpy as np
+
+    t = np.arange(int(sr * dur)) / sr
+    f0 = voice["f0"] * (1 + 0.08 * np.sin(2 * np.pi * rng.uniform(0.3, 1.5) * t + rng.uniform(0, 6.3)))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    sig = sum(h ** -voice["tilt"] * (1 + 3 * np.exp(-(((h * voice["f0"]) - voice["formant"]) / 250.0) ** 2))
+              * np.sin(h * phase + rng.uniform(0, 6.3)) for h in range(1, 13))
+    sig = sig * (0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2.0, 5.0) * t) ** 2) + 0.01 * rng.standard_normal(t.size)
+    return sig / np.abs(sig).max() * rng.uniform(0.4, 0.9)
+
+
+def write_vctk(root: str, n_speakers: int, n_clips: int, seconds: float, sr: int = 16000, seed: int = SEED + 11):
+    """VCTK's layout (`txt/<spk>/<spk>_<id>.txt` and
+    `wav48_silence_trimmed/<spk>/<spk>_<id>.wav`, the recipe's `vctk`
+    formatter) at 16 kHz, as the recipe resamples it, from a numpy seed:
+    each speaker one voice (its f0, tilt and formant), each clip a fresh
+    draw of it."""
+    import numpy as np
+    import scipy.io.wavfile
+
+    rng = np.random.default_rng(seed)
+    clips = []
+    for s in range(n_speakers):
+        spk = f"p{225 + s}"
+        voice = {"f0": rng.uniform(85, 255), "tilt": rng.uniform(0.6, 1.6), "formant": rng.uniform(400, 2600)}
+        os.makedirs(os.path.join(root, "txt", spk))
+        os.makedirs(os.path.join(root, "wav48_silence_trimmed", spk))
+        for i in range(n_clips):
+            name = f"{spk}_{i + 1:03d}"
+            with open(os.path.join(root, "txt", spk, name + ".txt"), "w", encoding="utf-8") as f:
+                f.write(random_text(rng, 20, 60) + "\n")
+            path = os.path.join(root, "wav48_silence_trimmed", spk, name + ".wav")
+            scipy.io.wavfile.write(path, sr, (speaker_clip(rng, voice, sr, seconds) * 32767).astype(np.int16))
+            clips.append(path)
+    return {"speakers": n_speakers, "clips": len(clips), "audio_s": len(clips) * seconds, "sample_rate": sr,
+            "paths": clips}
+
+
+def encoder_config(root: str, out: str, epochs: int):
+    """The VCTK ResNet speaker-encoder recipe
+    (`recipes/vctk/resnet_speaker_encoder/train_encoder.py`): 64 → 512,
+    layers (3, 4, 6, 3), filters 32–256, 100 speakers × 4 crops of 2 s,
+    `softmaxproto` (trained as angle-proto, as `tpu_tts` trains it), radam,
+    16 kHz, 64 mels, fft 512, win 400, hop 160."""
+    from tpu_tts_torch.config.shared_configs import BaseDatasetConfig
+    from tpu_tts_torch.encoder.configs import SpeakerEncoderConfig
+
+    cfg = SpeakerEncoderConfig(
+        datasets=[BaseDatasetConfig(formatter="vctk", meta_file_train="", language="en-us", path=root)],
+        num_classes_in_batch=ENC_SPEAKERS, num_utter_per_class=ENC_UTTERS, eval_num_classes_in_batch=ENC_SPEAKERS,
+        eval_num_utter_per_class=ENC_UTTERS, num_loader_workers=8, epochs=epochs, loss="softmaxproto",
+        run_eval=False, output_path=out, save_step=2000, print_step=1, voice_len=ENC_VOICE_S, training_seed=SEED,
+        model_params={"model_name": "resnet", "input_dim": 64, "use_torch_spec": True, "log_input": True,
+                      "proj_dim": 512})
+    cfg.audio.update(dict(fft_size=512, win_length=400, hop_length=160, sample_rate=16000, preemphasis=0.97,
+                          num_mels=64))
+    return cfg
+
+
+def check_encoder_card_vs_cpu() -> dict:
+    """A tiny ResNet (layers (1, 1, 1, 1), filters 8–16, 16 mels, batch
+    norm in eval) and a tiny LSTM with seeded weights: the embedding of the
+    same mels on the card against the CPU, within ENC_CARD_TOL."""
+    import torch
+
+    from tpu_tts_torch.encoder.models import LSTMSpeakerEncoder, ResNetSpeakerEncoder
+
+    out = {"tol": ENC_CARD_TOL}
+    gen = torch.Generator().manual_seed(SEED)
+    mel = torch.randn(3, 16, 120, generator=gen)
+    for name, net in (("resnet", ResNetSpeakerEncoder(16, 8, (1, 1, 1, 1), (8, 8, 16, 16), norm_type="batch")),
+                      ("lstm", LSTMSpeakerEncoder(16, 8, 24, 2))):
+        with torch.no_grad():
+            for k, v in net.state_dict().items():
+                if v.is_floating_point():
+                    v.copy_((1 + 0.3 * torch.rand(v.shape, generator=gen)) if k.endswith("running_var")
+                            else 0.2 * torch.randn(v.shape, generator=gen))
+        net.eval()
+        with torch.no_grad():
+            cpu = net(mel)
+            card = net.cuda()(mel.cuda()).cpu()
+        out[f"{name}_max_abs_err"] = float((cpu - card).abs().max())
+    log("encoder card vs cpu " + json.dumps(out))
+    if max(out["resnet_max_abs_err"], out["lstm_max_abs_err"]) > ENC_CARD_TOL:
+        raise AssertionError(f"the encoder's embedding on the card disagrees with the CPU: {out}")
+    return out
+
+
+def encoder_steps(config, device: str = "cuda") -> dict:
+    """On one batch of the recipe's shape (the sampler's first: 100 speakers
+    × 4 crops of 2 s) the training step of `bin/train_encoder` (log-mels,
+    the "batch"-norm ResNet, angle-proto with w and b, radam with clip 3):
+    one warm-up, ENC_TIMED_STEPS steps timed with CUDA events, peak memory;
+    then steps on the same batch up to ENC_OVERFIT_STEPS, which must lower
+    the loss (the median of the last 5 below the first)."""
+    import random
+    import statistics
+
+    import torch
+
+    from tpu_tts_torch.audio import AudioProcessor
+    from tpu_tts_torch.bin.train_encoder import encoder_loss
+    from tpu_tts_torch.data import load_tts_samples
+    from tpu_tts_torch.data.samplers import PerfectBatchSampler
+    from tpu_tts_torch.encoder.dataset import EncoderDataset
+    from tpu_tts_torch.encoder.models import setup_encoder_model
+    from tpu_tts_torch.train.optimizers import get_optimizer
+
+    random.seed(SEED)
+    torch.manual_seed(SEED)
+    items, _ = load_tts_samples(config.datasets, eval_split=False)
+    dataset = EncoderDataset(config, AudioProcessor.init_from_config(config), items, voice_len=config.voice_len,
+                             num_classes_in_batch=ENC_SPEAKERS, num_utter_per_class=ENC_UTTERS, seed=SEED)
+    sampler = PerfectBatchSampler([{"class_name": it["speaker_name"]} for it in dataset.items],
+                                  dataset.get_class_list(), batch_size=ENC_SPEAKERS * ENC_UTTERS,
+                                  num_classes_in_batch=ENC_SPEAKERS, drop_last=True)
+    wavs = torch.from_numpy(dataset.collate_fn([dataset[i] for i in next(iter(sampler))])["wavs"]).to(device)
+    model = setup_encoder_model(config, device=device)
+    net = model.net.train()
+    w = torch.nn.Parameter(torch.tensor(10.0, device=device))
+    b = torch.nn.Parameter(torch.tensor(-5.0, device=device))
+    opt = get_optimizer(config.optimizer, config.optimizer_params, list(net.parameters()) + [w, b], config,
+                        schedule=config.lr)
+    losses, ms = [], []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(ENC_OVERFIT_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = encoder_loss(config, net(model.features_from_wav(wavs)).reshape(ENC_SPEAKERS, ENC_UTTERS, -1), w, b)
+        loss.backward()
+        opt.step()
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        if 1 <= step <= ENC_TIMED_STEPS:
+            ms.append(start.elapsed_time(end))
+    out = {"batch": [ENC_SPEAKERS, ENC_UTTERS], "crop_s": ENC_VOICE_S, "frames": int(model.features_from_wav(
+        wavs[:1]).shape[-1]), "params": sum(p.numel() for p in net.parameters()), "optimizer": config.optimizer,
+        "step_ms": sum(ms) / len(ms), "step_ms_each": ms, "peak_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "loss_first": losses[0], "loss_median_last5": statistics.median(losses[-5:]), "losses": losses}
+    log("encoder steps " + json.dumps(out))
+    profile_call(lambda: (encoder_loss(config, net(model.features_from_wav(wavs)).reshape(ENC_SPEAKERS, ENC_UTTERS, -1),
+                                       w, b).backward(), opt.step()),
+                 {"model": "speaker encoder", "call": "one training step", "batch": ENC_SPEAKERS * ENC_UTTERS}, top=10)
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)) or not out["loss_median_last5"] < losses[0]:
+        raise AssertionError(f"the encoder's loss is not finite or {ENC_OVERFIT_STEPS} steps did not lower it: {out}")
+    del net, model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def encoder_phase(tmp: str, device: str = "cuda") -> dict:
+    """Phase c, the speaker encoder: the VCTK ResNet recipe's encoder at full
+    width trained through `bin/train_encoder` for ENC_EPOCHS steps on
+    100 seeded voices × 4 clips (`encoder train`); its step timed and 20
+    steps on one batch (`encoder steps`); a tiny encoder on the card against
+    the CPU; `bin/compute_embeddings` over the clips into a d-vector file and
+    `bin/eval_encoder`'s margin (`encoder embeddings`)."""
+    import contextlib
+
+    import numpy as np
+
+    from tpu_tts_torch.bin import compute_embeddings, eval_encoder, train_encoder
+    from tpu_tts_torch.train.checkpoint import get_last_checkpoint
+
+    t_phase = time.perf_counter()
+    root, out = os.path.join(tmp, "vctk"), os.path.join(tmp, "encoder")
+    data = write_vctk(root, ENC_SPEAKERS, ENC_UTTERS, ENC_CLIP_S)
+    config = encoder_config(root, out, ENC_EPOCHS)
+    os.makedirs(out)
+    config_path = os.path.join(out, "config_se.json")
+    config.save_json(config_path)
+    t0 = time.perf_counter()
+    train_encoder.main(["--config_path", config_path, "--max_steps", str(ENC_EPOCHS), "--device", device])
+    checkpoint, _ = get_last_checkpoint(out)
+    train = {"steps": ENC_EPOCHS, "wall_s": time.perf_counter() - t0, "checkpoint": os.path.basename(checkpoint),
+             "data": {k: v for k, v in data.items() if k != "paths"}}
+    log("encoder train " + json.dumps(train))
+    steps = encoder_steps(config, device)
+    card = check_encoder_card_vs_cpu()
+    d_vector_file = os.path.join(tmp, "speakers_dvec.json")
+    t0 = time.perf_counter()
+    compute_embeddings.compute_embeddings(checkpoint, os.path.join(out, "config.json"), d_vector_file,
+                                          config_dataset_path=config_path, no_eval=True, device=device)
+    embed_s = time.perf_counter() - t0
+    with open(d_vector_file, encoding="utf-8") as f:
+        embs = json.load(f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        margin = eval_encoder.main([checkpoint, os.path.join(out, "config.json"), config_path, "--device", device])
+    row = {"clips": len(embs), "dim": len(next(iter(embs.values()))["embedding"]), "wall_s": embed_s,
+           "speakers": len({v["name"] for v in embs.values()}), **margin}
+    log("encoder embeddings " + json.dumps(row))
+    if row["clips"] != data["clips"] or row["dim"] != 512 or not all(
+            np.isfinite(v["embedding"]).all() for v in embs.values()) or not np.isfinite(row["margin"]):
+        raise AssertionError(f"compute_embeddings / eval_encoder: {row}")
+    wall = time.perf_counter() - t_phase
+    log(f"encoder phase wall: {wall:.1f} s")
+    return {"train": train, "steps": steps, "card": card, "embeddings": row, "checkpoint": checkpoint,
+            "config_path": os.path.join(out, "config.json"), "d_vector_file": d_vector_file,
+            "clips": data["paths"], "phase_wall_s": wall}
+
+
+# ---------------------------------------------------------------- voice cloning through K1 (phase d)
+def xtts_clone_serve(paths: dict, clips: list, device: str = "cuda") -> dict:
+    """The Coqui-layout XTTS-v2 model directory (the ResNet speaker encoder
+    in place of `speaker_proj`) served with `--max_streams 8`: one
+    `/api/tts_stream?speaker_wav=` stream (72 K1 launches a chunk); the
+    decoder of a chunk through K1 against the plain MRF; two wavs of two
+    speakers giving other speaker embeddings and waveforms; the ms to
+    condition on a new wav (`get_conditioning_latents`, CUDA-synchronised,
+    after a warm-up)."""
+    import numpy as np
+    import torch
+
+    from tpu_tts_torch.audio.numpy_transforms import load_wav
+    from tpu_tts_torch.infer.xtts_pool import XttsStreamPool
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.server.server import TTSHandler, create_server
+    from tpu_tts_torch.vocoder.models import hifigan_generator
+
+    server = create_server(argparse.Namespace(model_dir=paths["model_dir"], device=device, host="127.0.0.1", port=0,
+                                              max_streams=8))
+    synth = TTSHandler.synthesizer
+    model = synth.tts_model
+    model.bpe.encode = xtts_token_ids
+    pool = XttsStreamPool(model, max_streams=TTSHandler.pool_max_streams, **XTTS_STREAM)
+    TTSHandler._pool = pool
+    streams, submit = {}, pool.submit
+
+    def recording_submit(**kwargs):
+        stream = submit(**kwargs)
+        streams[kwargs["text"]] = stream
+        return stream
+
+    pool.submit = recording_submit
+    dec = model.net.hifigan_decoder["waveform_decoder"]
+    per_call = sum(hifigan_mrf.launches_per_stage(dec.mrf_stage(i)) for i in range(dec.num_upsamples))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    sr = model.args.input_sample_rate
+    try:
+        wavs = [load_wav(filename=p, sample_rate=sr, resample=True) for p in clips[:3]]
+        model.get_conditioning_latents(wavs[2], sr=sr)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (cond_a, spk_a) = model.get_conditioning_latents(wavs[0], sr=sr)
+        torch.cuda.synchronize()
+        cond_ms = (time.perf_counter() - t0) * 1e3
+        cond_b, spk_b = model.get_conditioning_latents(wavs[1], sr=sr)
+        text = XTTS_TEXTS[0]
+        hifigan_mrf.launches = 0
+        calls0 = pool.decode_calls
+        reply = stream_request(base, f"text={urllib.parse.quote(text)}&speaker_wav={urllib.parse.quote(clips[0])}")
+        launches = hifigan_mrf.launches
+        plan = check_stream_reply(model, reply, streams[text].codes, "cloned stream")
+        calls = pool.decode_calls - calls0
+        lat = torch.randn(1, XTTS_STREAM["first_chunk_size"], model.args.gpt_n_model_channels, device=device,
+                          generator=torch.Generator(device=device).manual_seed(SEED))
+        with torch.no_grad():
+            wav_a, wav_b = model.net.decode_latents(lat, spk_a), model.net.decode_latents(lat, spk_b)
+            hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
+            try:
+                plain_a = model.net.decode_latents(lat, spk_a)
+            finally:
+                hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
+        out = {"tokens": len(streams[text].codes), "chunks": len(plan), "decode_calls": calls,
+               "samples": int(reply["pcm"].size), "first_chunk_ms": reply["first_s"] * 1e3, "wall_s": reply["wall_s"],
+               "hifigan_mrf_launches": launches, "launches_per_chunk": launches // max(len(plan), 1),
+               "conditioning_ms": cond_ms, "cond_wav_s": len(wavs[0]) / sr, "speaker_embedding_dim": int(spk_a.shape[-1]),
+               "speaker_cosine_a_b": float((spk_a * spk_b).sum()), "decoder_max_abs_err_vs_plain": float(
+                   (wav_a - plain_a).abs().max()), "waveform_a_vs_b_max_abs": float((wav_a - wav_b).abs().max()),
+               "tol": XTTS_TOL}
+        log("xtts clone " + json.dumps(out))
+        if launches != per_call * len(plan) or per_call != 72 or calls != len(plan) or spk_a.shape[-1] != 512 \
+                or out["decoder_max_abs_err_vs_plain"] > XTTS_TOL or out["speaker_cosine_a_b"] > 0.9999 \
+                or out["waveform_a_vs_b_max_abs"] <= 1e-3 or not np.isfinite(reply["pcm"]).all():
+            raise AssertionError(f"XTTS voice cloning through the ResNet encoder and K1: {out}")
+        return out
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        pool.close()
+        TTSHandler._pool = None
+
+
+def dvector_vits_serve(tmp: str, enc: dict, device: str = "cuda") -> dict:
+    """A full-width d-vector VITS with ResBlock1 (its d-vector file the one
+    phase c computed, 512 wide), served by `/api/tts`; the speaker encoder
+    attached to the synthesizer's speaker manager by `init_encoder`; one
+    request with `speaker_wav`: 72 K1 launches, a finite reply."""
+    import numpy as np
+    import scipy.io.wavfile
+
+    from tpu_tts_torch.configs.vits_config import VitsArgs, VitsConfig
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.server.server import TTSHandler, create_server
+
+    config = VitsConfig(model_args=VitsArgs(use_d_vector_file=True, d_vector_dim=512,
+                                            d_vector_file=[enc["d_vector_file"]]),
+                        use_d_vector_file=True, d_vector_file=[enc["d_vector_file"]], d_vector_dim=512)
+    paths = save_model(tmp, device=device, config=config, coqui=True)
+    server = create_server(argparse.Namespace(**paths, device=device, host="127.0.0.1", port=0))
+    if TTSHandler._batcher is not None:
+        TTSHandler._batcher.close()
+        TTSHandler._batcher = None
+    synth = TTSHandler.synthesizer
+    synth.speaker_manager.init_encoder(enc["checkpoint"], enc["config_path"], device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        query = urllib.parse.urlencode({"text": TEXTS[1], "speaker_wav": enc["clips"][5]})
+        hifigan_mrf.launches = 0
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.server_address[1]}/api/tts?{query}",
+                                    timeout=600) as r:
+            status, body = r.status, r.read()
+        wall = time.perf_counter() - t0
+        launches = hifigan_mrf.launches
+        rate, pcm = scipy.io.wavfile.read(io.BytesIO(body))
+        out = {"status": status, "samples": int(pcm.size), "sample_rate": rate, "wall_s": wall,
+               "hifigan_mrf_launches": launches, "d_vector_dim": 512}
+        log("dvector vits speaker_wav " + json.dumps(out))
+        if status != 200 or launches != 72 or not pcm.size or not np.isfinite(pcm).all() \
+                or int(np.abs(pcm.astype(np.int32)).max()) == 0:
+            raise AssertionError(f"the d-vector VITS with speaker_wav: {out}")
+        return out
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
+def cloning_phase(tmp: str, enc: dict, device: str = "cuda") -> dict:
+    """Phase d: XTTS-v2 cloning a voice from a wav through its ResNet speaker
+    encoder and K1 (`xtts clone`), then a d-vector VITS given a
+    `speaker_wav` (`dvector vits speaker_wav`)."""
+    import torch
+
+    t0 = time.perf_counter()
+    xtts_dir = os.path.join(tmp, "xtts")
+    os.makedirs(xtts_dir)
+    xtts = xtts_clone_serve(save_xtts(xtts_dir, ref_encoder=True, device=device), enc["clips"], device)
+    subprocess.run(["rm", "-rf", xtts_dir], check=True)
+    torch.cuda.empty_cache()
+    vits_dir = os.path.join(tmp, "vits")
+    os.makedirs(vits_dir)
+    vits = dvector_vits_serve(vits_dir, enc, device)
+    wall = time.perf_counter() - t0
+    log(f"cloning phase wall: {wall:.1f} s")
+    return {"xtts": xtts, "vits": vits, "phase_wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -2585,6 +3143,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         train = train_phase(tmp)
+        torch.cuda.empty_cache()
+        mixed = mixed_train_phase(tmp, train)
     torch.cuda.empty_cache()
     xtts_k1 = check_mrf_kernel_xtts()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2592,6 +3152,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         multilingual = multilingual_train_phase(tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        encoder = encoder_phase(tmp)
+        cloning = cloning_phase(tmp, encoder)
 
     f32 = [r for r in rows if r["dtype"] == "float32"]
     served = next(r for r in k2_rows if r["mode"] == "sampled")  # the mode the vocoder serves
@@ -2637,11 +3201,22 @@ def main() -> int:
         "vc_launches": multilingual["vc"]["hifigan_mrf_launches"],
         "vc_max_abs_err": multilingual["vc"]["max_abs_err_vs_plain"],
         "shapes_xtts_chunks": xtts_k1,
+        # mixed-precision VITS training (LJSpeech and VCTK settings): 0; its checkpoint served: 72; XTTS-v2
+        # cloning a wav through the ResNet encoder: 72 a chunk; a d-vector VITS given a speaker_wav: 72
+        "train_mixed_launches": mixed["hifigan_mrf_launches"] + mixed["vctk"]["hifigan_mrf_launches"],
+        "train_mixed_serve_launches": mixed["served"]["hifigan_mrf_launches"],
+        "train_mixed_serve_max_abs_err": mixed["served"]["max_abs_err_vs_plain"],
+        "xtts_clone_launches": cloning["xtts"]["hifigan_mrf_launches"],
+        "xtts_clone_launches_per_chunk": cloning["xtts"]["launches_per_chunk"],
+        "xtts_clone_decoder_max_abs_err": cloning["xtts"]["decoder_max_abs_err_vs_plain"],
+        "dvector_speaker_wav_launches": cloning["vits"]["hifigan_mrf_launches"],
         "launches_all_phases": (mrf_launches + batched["launches"] + multi["launches"] + yourtts["hifigan_mrf_launches"]
                                 + xtts["launches"] + train["hifigan_mrf_launches"]
                                 + train["served"]["hifigan_mrf_launches"] + xtts_train["hifigan_mrf_launches"]
                                 + xtts_train["served"]["hifigan_mrf_launches"] + multilingual["hifigan_mrf_launches"]
-                                + multilingual["vc"]["hifigan_mrf_launches"]),
+                                + multilingual["vc"]["hifigan_mrf_launches"] + mixed["hifigan_mrf_launches"]
+                                + mixed["vctk"]["hifigan_mrf_launches"] + mixed["served"]["hifigan_mrf_launches"]
+                                + cloning["xtts"]["hifigan_mrf_launches"] + cloning["vits"]["hifigan_mrf_launches"]),
     }, {
         "name": "wavernn_sampler",
         "route": "cuda",

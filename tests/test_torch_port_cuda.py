@@ -414,9 +414,10 @@ def _tiny_xtts_on_card(**overrides):
     from tpu_tts_torch.models.xtts import Xtts
 
     torch.manual_seed(0)
-    args = XttsArgs(gpt_layers=2, gpt_n_heads=2, gpt_n_model_channels=64, gpt_number_text_tokens=50,
-                    gpt_num_audio_tokens=66, gpt_start_audio_token=64, gpt_stop_audio_token=65, num_cond_latents=4,
-                    d_vector_dim=32, decoder_input_dim=64, kv_cache_len=256, **overrides)
+    args = XttsArgs(**{**dict(gpt_layers=2, gpt_n_heads=2, gpt_n_model_channels=64, gpt_number_text_tokens=50,
+                              gpt_num_audio_tokens=66, gpt_start_audio_token=64, gpt_stop_audio_token=65,
+                              num_cond_latents=4, d_vector_dim=32, decoder_input_dim=64, kv_cache_len=256),
+                       **overrides})
     return Xtts(XttsConfig(model_args=args), device="cuda")
 
 
@@ -488,10 +489,11 @@ def test_xtts_pool_greedy_codes_score_best_teacher_forced():
         assert float(gap.max()) <= 1e-4
 
 
-def _tiny_train_pair():
+def _tiny_train_pair(mixed: bool = False):
     """A tiny VITS set up for training on the CPU and on the card with the
     same seeded weights (weight-norm gains ≈ 1, the rest ~N(0, 0.1²), so the
-    zero-initialised projections do work), no dropout."""
+    zero-initialised projections do work), no dropout; with `mixed`, at
+    mixed precision."""
     from tpu_tts_torch.configs.vits_config import VitsArgs, VitsAudioConfig, VitsConfig
     from tpu_tts_torch.models.vits import Vits
 
@@ -501,7 +503,8 @@ def _tiny_train_pair():
                     upsample_initial_channel_decoder=32, resblock_kernel_sizes_decoder=[3, 7],
                     resblock_dilation_sizes_decoder=[[1, 3], [1, 3]], periods_multi_period_discriminator=[2],
                     dropout_p_text_encoder=0.0, dropout_p_duration_predictor=0.0)
-    config = VitsConfig(model_args=args, audio=VitsAudioConfig(fft_size=64, win_length=64, hop_length=16, num_mels=20))
+    config = VitsConfig(model_args=args, audio=VitsAudioConfig(fft_size=64, win_length=64, hop_length=16, num_mels=20),
+                        mixed_precision=mixed)
     cpu, card = Vits(config, device="cpu"), Vits(config, device="cuda")
     cpu.init_training()
     card.init_training()
@@ -673,3 +676,99 @@ def test_vits_voice_conversion_through_k1():
     assert launches == 72 and got.shape == (40 * 256,)
     assert float(abs(got - ref).max()) <= 1e-3
     assert float(abs(model.voice_conversion(wav, 0, 1) - got).max()) > 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer_idx", [0, 1])
+def test_mixed_precision_train_step_on_card_matches_cpu(optimizer_idx):
+    """A D step (0) or G step (1) of the tiny VITS at mixed precision
+    (bfloat16 compute on float32 parameters) on the card against the CPU:
+    losses within 2e-2 relative, every parameter and gradient float32, the
+    gradients' relative L2 distance within 0.5 (bfloat16 rounds cuDNN's sums
+    and the CPU's differently, and a GAN step's gradients carry that noise;
+    a wrong backward lands near 1)."""
+    _need_cuda()
+    cpu, card, batch, draws = _tiny_train_pair(mixed=True)
+    results = []
+    for m in (cpu, card):
+        m.train(True)
+        loss, logs = m.loss_fn({k: v.to(m.device) for k, v in batch.items()}, optimizer_idx,
+                               draws={k: v.to(m.device) for k, v in draws.items()})
+        loss.backward()
+        mod = m.disc if optimizer_idx == 0 else m.net
+        results.append(({k: float(v.detach()) for k, v in logs.items()},
+                        {n: p.grad.cpu() for n, p in mod.named_parameters() if p.grad is not None}))
+        assert {p.dtype for p in mod.parameters()} == {torch.float32}
+    (lc, gc), (lg, gg) = results
+    for k in lc:
+        assert abs(lc[k] - lg[k]) <= 2e-2 * max(1.0, abs(lc[k])), k
+    assert set(gc) == set(gg) and gc and {g.dtype for g in gg.values()} == {torch.float32}
+    vc, vg = torch.cat([gc[n].flatten() for n in gc]), torch.cat([gg[n].flatten() for n in gc])
+    assert float((vc - vg).norm() / vc.norm()) <= 0.5
+
+
+@pytest.mark.cuda
+def test_speaker_encoders_on_card_match_cpu():
+    """The LSTM, a narrow "batch" ResNet in eval and the full XTTS-side ResNet
+    (64 → 512, frozen batch norms) with seeded weights: the card's embedding
+    of the same mels within 1e-4 of the CPU's (float32, TF32 off)."""
+    from tpu_tts_torch.encoder.models import LSTMSpeakerEncoder, ResNetSpeakerEncoder
+
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(3)
+    for net, c_mel in ((LSTMSpeakerEncoder(16, 8, 24, 2), 16),
+                       (ResNetSpeakerEncoder(16, 8, (1, 1, 1, 1), (8, 8, 16, 16), norm_type="batch"), 16),
+                       (ResNetSpeakerEncoder(64, 512, norm_type="frozen_batch"), 64)):
+        with torch.no_grad():
+            for k, v in net.state_dict().items():
+                if v.is_floating_point():
+                    v.copy_((1 + 0.3 * torch.rand(v.shape, generator=gen)) if k.endswith("running_var")
+                            else 0.2 * torch.randn(v.shape, generator=gen))
+        net.eval()
+        mel = torch.randn(3, c_mel, 150, generator=gen)
+        with torch.no_grad():
+            ref = net(mel)
+            got = net.cuda()(mel.cuda()).cpu()
+        assert float((got - ref).abs().max()) <= 1e-4, type(net).__name__
+
+
+@pytest.mark.cuda
+def test_xtts_cloning_through_k1():
+    """A tiny XTTS-v2 with Coqui's decoder-side ResNet speaker encoder on the
+    card: the speaker embedding of a wav within 1e-4 of the CPU's, and the
+    decoder conditioned on it through K1, 72 launches, within 1e-3 of the
+    plain MRF; another wav gives another embedding and waveform."""
+    from tpu_tts_torch.models.xtts import XttsNet
+    from tpu_tts_torch.vocoder.models import hifigan_generator
+
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _tiny_xtts_on_card(d_vector_dim=512)
+    torch.manual_seed(1)
+    model.net = XttsNet(model.args, ref_speaker_encoder=True).cuda().eval()
+    cpu_net = XttsNet(model.args, ref_speaker_encoder=True).eval()
+    cpu_net.load_state_dict(model.net.state_dict())
+    gen = torch.Generator().manual_seed(2)
+    wavs = [(0.3 * torch.sin(0.02 * (k + 1) * torch.arange(22050.0)) + 0.05 * torch.randn(22050, generator=gen))
+            .numpy() for k in range(2)]
+    (_, spk), (_, spk_b) = (model.get_conditioning_latents(w, sr=22050) for w in wavs)
+    card_net, model.net = model.net, cpu_net
+    model.device = torch.device("cpu")
+    try:
+        _, spk_cpu = model.get_conditioning_latents(wavs[0], sr=22050)
+    finally:
+        model.net, model.device = card_net, torch.device("cuda")
+    assert spk.shape == (1, 512) and float((spk.cpu() - spk_cpu).abs().max()) <= 1e-4
+    assert float((spk - spk_b).abs().max()) > 1e-3
+    lat = torch.randn(1, 8, 64, generator=gen).cuda()
+    before = hifigan_mrf.launches
+    got = model.net.decode_latents(lat, spk)
+    launched = hifigan_mrf.launches - before
+    hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
+    try:
+        ref = model.net.decode_latents(lat, spk)
+    finally:
+        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
+    assert launched == 72 and float((got - ref).abs().max()) <= 1e-3
+    assert float((model.net.decode_latents(lat, spk_b) - got).abs().max()) > 1e-4

@@ -126,7 +126,12 @@ def test_port_imports_neither_jax_nor_tpu_tts():
                             "tpu_tts_torch.data.dataset", "tpu_tts_torch.data.formatters",
                             "tpu_tts_torch.data.samplers", "tpu_tts_torch.ops.mas", "tpu_tts_torch.layers.losses",
                             "tpu_tts_torch.vocoder.models.hifigan_discriminator", "tpu_tts_torch.bin.train_tts",
-                            "tpu_tts_torch.layers.xtts.dvae", "tpu_tts_torch.layers.xtts.dataset")
+                            "tpu_tts_torch.layers.xtts.dvae", "tpu_tts_torch.layers.xtts.dataset",
+                            "tpu_tts_torch.train.precision", "tpu_tts_torch.encoder.configs",
+                            "tpu_tts_torch.encoder.models", "tpu_tts_torch.encoder.losses",
+                            "tpu_tts_torch.encoder.dataset", "tpu_tts_torch.encoder.encoder_convert",
+                            "tpu_tts_torch.bin.train_encoder", "tpu_tts_torch.bin.compute_embeddings",
+                            "tpu_tts_torch.bin.eval_encoder")
                 if m not in sys.modules]  # the serving modules are among those walked
         print(len([m for m in sys.modules if m.startswith("tpu_tts_torch.")]), bad)
         """

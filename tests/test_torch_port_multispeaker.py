@@ -332,7 +332,7 @@ def test_synthesizer_server_api_cli_match_jax(multilingual, served, tmp_path, ca
     assert max_err(got, ref) <= WAVE_TOL
     with pytest.raises(ValueError, match="multi-speaker"):
         ps.resolve_speaker("")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="speaker encoder"):  # no encoder attached: JAX ignores the wav
         ps.tts(text, speaker_wav="clip.wav")
     with pytest.raises(ValueError, match="posterior encoder"):  # an inference checkpoint cannot convert voices
         ps.tts(text, speaker_name=speaker, reference_wav=np.zeros(4096, np.float32))
@@ -423,5 +423,7 @@ def test_managers_match_jax(tmp_path):
         assert make(Args()) is None and lm_make(Args()) is None
     d = managers.SpeakerManager.init_from_config(VitsArgs(use_d_vector_file=True, d_vector_file=[str(tmp_path / "d1.json")]))
     assert d.speaker_names == ["amy", "zoe"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        d.compute_embedding_from_clip("clip.wav")
+    for manager in (d, jax_managers.SpeakerManager.init_from_config(JaxArgs(use_d_vector_file=True, d_vector_file=[
+            str(tmp_path / "d1.json")]))):  # no encoder: both raise
+        with pytest.raises(RuntimeError, match="not initialized"):
+            manager.compute_embedding_from_clip("clip.wav")

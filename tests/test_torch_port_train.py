@@ -236,7 +236,7 @@ def _effective_jax_tree(params, grads):
     return {k: _effective_jax_tree(params[k], grads[k]) for k in grads}
 
 
-def _compare_grads(got, want, label):
+def _compare_grads(got, want, label, rel=1e-3):
     bad, checked = [], 0
     for k, w in want.items():
         if k.endswith("original0"):
@@ -244,7 +244,7 @@ def _compare_grads(got, want, label):
         g = got[k].numpy().reshape(w.shape)
         scale = float(np.abs(w.numpy()).max())
         checked += 1
-        if not np.abs(g - w.numpy()).max() <= 1e-3 * scale + 1e-6:
+        if not np.abs(g - w.numpy()).max() <= rel * scale + 1e-6:
             bad.append((k, float(np.abs(g - w.numpy()).max()), scale))
     assert checked > 0 and not bad, f"{label}: {bad[:8]}"
 

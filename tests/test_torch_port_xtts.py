@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import XTTS_ARGS, jax_xtts, max_err, port_xtts, speaker_wav
+from tests.torch_port_common import XTTS_ARGS, jax_xtts, max_err, port_xtts, seeded, speaker_wav
 
 torch.set_num_threads(1)
 
@@ -232,8 +232,11 @@ def test_coqui_keys_round_trip(models, tmp_path):
     converter it gives back the JAX params (folded weight-norm kernels
     compared). Rewritten into Coqui's own layout (old-style weight norm, a
     plain `conv_pre`/`conv_post` without bias, the decoder-side speaker
-    encoder instead of `speaker_proj`) it loads into the port, serves the
-    same waveform, and raises on cloning from a wav."""
+    encoder, a seeded 64 → 512 ResNet, instead of `speaker_proj`, with
+    its spectrogram front end's buffers) it loads into the port, serves the
+    same waveform, and clones from a wav as JAX's converted model does:
+    the conditioning latents and the speaker encoder's embedding within
+    1e-5."""
     from tpu_tts.models.xtts_convert import convert_xtts_torch_state_dict
     from tpu_tts_torch.configs.xtts_config import XttsArgs, XttsConfig
     from tpu_tts_torch.models.xtts import Xtts
@@ -273,7 +276,11 @@ def test_coqui_keys_round_trip(models, tmp_path):
             coqui[k.replace(".parametrizations.weight.original0", ".weight_g")
                   .replace(".parametrizations.weight.original1", ".weight_v")] = v
     coqui = {k: v.detach().clone() for k, v in coqui.items()}
-    coqui["hifigan_decoder.speaker_encoder.conv1.weight"] = torch.zeros(32, 1, 3, 3)
+    from tpu_tts_torch.encoder.models import ResNetSpeakerEncoder
+
+    encoder = seeded(ResNetSpeakerEncoder(input_dim=64, proj_dim=512, norm_type="frozen_batch"), 9)
+    coqui.update({f"hifigan_decoder.speaker_encoder.{k}": v.clone() for k, v in encoder.state_dict().items()})
+    coqui["hifigan_decoder.speaker_encoder.torch_spec.1.mel_scale.fb"] = torch.ones(257, 64)  # Coqui's front end
     coqui["gpt.gpt.h.0.attn.bias"] = torch.ones(1, 1, 8, 8)  # GPT-2's causal-mask buffer
     path = tmp_path / "coqui.pth"
     torch.save({"model": coqui, "step": 0}, path)
@@ -286,5 +293,18 @@ def test_coqui_keys_round_trip(models, tmp_path):
         post.bias.copy_(dec.conv_post.bias)
     lat, spk = torch.randn(1, 6, 32), torch.nn.functional.normalize(torch.randn(1, 16), dim=-1)
     assert max_err(other.net.decode_latents(lat, spk), pm.net.decode_latents(lat, spk)) <= 1e-5
-    with pytest.raises(NotImplementedError, match="M9"):
-        other.get_conditioning_latents(speaker_wav(0))
+
+    from tpu_tts.configs.xtts_config import XttsConfig as JaxXttsConfig
+    from tpu_tts.models.xtts import Xtts as JaxXtts
+    from tpu_tts.models.xtts import XttsArgs as JaxXttsArgs
+
+    cfg = JaxXttsConfig()
+    cfg.model_args = JaxXttsArgs(**XTTS_ARGS)
+    ref_model = JaxXtts(cfg)
+    ref_model.params = ref_model.convert_torch_state_dict({k: v.numpy() for k, v in coqui.items()})
+    wav = speaker_wav(0)
+    ref_cond, ref_spk = ref_model.get_conditioning_latents(wav, sr=22050)
+    cond, spk = other.get_conditioning_latents(wav, sr=22050)
+    assert spk.shape == (1, 512) and abs(float(spk.norm()) - 1.0) <= 1e-5
+    assert max_err(cond, ref_cond) <= 1e-5 and max_err(spk, ref_spk) <= 1e-5
+    assert max_err(other.get_conditioning_latents(speaker_wav(1), sr=22050)[1], spk) > 1e-2  # another voice

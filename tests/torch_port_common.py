@@ -226,3 +226,22 @@ def port_xtts(**overrides):
 def speaker_wav(seed: int, n: int = 11025) -> np.ndarray:
     """Half a second of seeded noise at 22.05 kHz, the JAX pool tests' cloning audio."""
     return (np.random.default_rng(seed).standard_normal(n) * 0.3).astype(np.float32)
+
+
+def seeded(net, seed: int):
+    """Every float tensor of `net`'s state dict from a seed: running
+    variances ≈ 1 ± 0.3, means and biases ~N(0, 0.1²), weights He-scaled."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for k, v in net.state_dict().items():
+            if not v.is_floating_point():
+                continue
+            if k.endswith("running_var"):
+                v.copy_(1 + 0.3 * torch.rand(v.shape, generator=g))
+            elif k.endswith(("running_mean", "bias")):
+                v.copy_(0.1 * torch.randn(v.shape, generator=g))
+            elif v.ndim == 1:
+                v.copy_(1 + 0.1 * torch.randn(v.shape, generator=g))
+            else:
+                v.copy_(torch.randn(v.shape, generator=g) * (2.0 / v[0].numel()) ** 0.5)
+    return net

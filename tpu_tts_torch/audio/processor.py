@@ -10,7 +10,7 @@ Built on the port's `numpy_transforms`; everything here runs on the host in
 numpy, as in the JAX package. Griffin-Lim takes an optional `seed` (an int
 or a `np.random.Generator`) for its first phases; the JAX processor never
 passes one. The f0, energy and quantisation helpers come with the models
-that read them (ROADMAP.md, M8 and M9).
+that read them (ROADMAP.md, M8 and M9b).
 """
 
 from typing import Dict, Optional, Tuple, Union

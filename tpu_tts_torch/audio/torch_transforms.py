@@ -14,9 +14,13 @@ the mel basis is the port's librosa-compatible one
 `torchaudio_mel` (`jax_transforms.py`:242) is XTTS fine-tuning's mel:
 torchaudio's `MelSpectrogram` (power 2, centred frames with reflect
 padding, a Slaney-normalised HTK mel basis), the log clamped at 1e-5 and
-divided per bin by `mel_norms` when given.
+divided per bin by `mel_norms` when given. `resize_linear` is
+`jax.image.resize(..., method="linear")` along time, which antialiases a
+downscale (the `encoder_sample_rate` posterior's waveform, XTTS's 16 kHz
+speaker-encoder input).
 """
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -68,3 +72,28 @@ def torchaudio_mel(y: torch.Tensor, *, fft_size: int, hop_length: int, win_lengt
     if mel_norms is not None:
         mel = mel / mel_norms.to(mel.device)[:, None]
     return mel
+
+
+def resize_linear(y: torch.Tensor, size: int) -> torch.Tensor:
+    """`jax.image.resize(y, (..., size), method="linear")` on the last axis.
+    Output i samples the input at s_i = (i + 0.5)·n/size − 0.5 through a
+    triangle kernel widened by n/size when that exceeds 1 (antialiasing on a
+    downscale, which `F.interpolate` does not do), its weights normalised
+    to sum 1 (`jax._src.image.scale.compute_weight_mat`). The positions are
+    rounded to float32 once, as XLA's fused arithmetic rounds them, so long
+    signals get JAX's weights too."""
+    n = y.shape[-1]
+    if size == n:
+        return y
+    inv = torch.tensor(1.0 / (size / n), dtype=torch.float32)  # JAX's inv_scale, rounded to float32
+    width = torch.clamp(inv, min=1.0)
+    sample = ((torch.arange(size, dtype=torch.float64) + 0.5) * inv.double() - 0.5).float()
+    taps = int(math.ceil(2 * float(width))) + 2  # a spare on each side; the kernel zeroes those outside its width
+    j = torch.floor(sample - width).long()[:, None] + torch.arange(taps)[None]  # [size, taps]
+    w = torch.clamp(1.0 - torch.abs(sample[:, None] - j.float()) / width, min=0.0) * ((j >= 0) & (j < n))
+    total = w.sum(dim=1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps), w / torch.where(total != 0, total, 1.0),
+                    0.0)
+    w = w * ((sample >= -0.5) & (sample <= n - 0.5))[:, None]
+    j, w = j.clamp(0, n - 1).to(y.device), w.to(device=y.device, dtype=y.dtype)
+    return torch.sum(y[..., j] * w, dim=-1)

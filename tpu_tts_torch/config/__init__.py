@@ -37,6 +37,7 @@ def _ensure_registry_populated() -> None:
 
     importlib.import_module("tpu_tts_torch.configs")
     importlib.import_module("tpu_tts_torch.vocoder.configs")
+    importlib.import_module("tpu_tts_torch.encoder.configs")
 
 
 def register_config(model_name: str) -> Type[Coqpit]:

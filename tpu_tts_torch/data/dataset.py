@@ -11,7 +11,7 @@ and length balancers) the loader draws each epoch's items with replacement
 in proportion to them, from the epoch's seeded generator, and sorts them
 so that batches keep the length sorting. The linear spectrograms, pitch,
 energy and aligner priors of the other acoustic models come with them
-(ROADMAP.md, M9); VITS computes its spectrograms on the device.
+(ROADMAP.md, M9b); VITS computes its spectrograms on the device.
 
 One divergence: the loader seeds each epoch's shuffle from (seed, epoch),
 `set_epoch` as torch's samplers have it, where the JAX loader carries one

@@ -24,8 +24,10 @@ The speaker and language managers are the model's (`tpu_tts_torch/
 managers.py`): a speaker name resolves to its id in the model's embedding
 table, or with d-vectors to the mean of its clips' d-vectors; a language
 name to its id. A model without managers resolves no ids, as in JAX. A
-d-vector from `speaker_wav` needs the speaker encoder (ROADMAP.md, M9) and
-raises. With `reference_wav` the call is VITS voice conversion
+`speaker_wav` (a path or a list of them) gives the d-vector through the
+speaker manager's encoder, attached as in JAX only by
+`SpeakerManager(encoder_model_path=...)` or `init_encoder`; without one it
+raises (ROADMAP.md, queue 3). With `reference_wav` the call is VITS voice conversion
 (`tpu_tts/infer/synthesizer.py`:208-220): the reference speaker's name
 resolves like the target's (a d-vector model takes that speaker's mean
 d-vector, where JAX passes none), and the waveform is trimmed when
@@ -140,10 +142,13 @@ class Synthesizer:
     # --------------------------------------------------------- id resolution
     def resolve_speaker(self, speaker_name: str = "", speaker_wav=None):
         """(speaker_id, d_vector) of a request, shared by `tts` and the
-        micro-batcher; (None, None) for a model without a speaker manager."""
-        if speaker_wav:
-            raise NotImplementedError("a d-vector from `speaker_wav` needs the speaker encoder, not ported yet "
-                                      "(ROADMAP.md, M9)")
+        micro-batcher; (None, None) for a model without a speaker manager.
+        A `speaker_wav` gives the d-vector when the speaker manager has an
+        encoder (`tpu_tts/infer/synthesizer.py`:162-163); without one the
+        port raises where JAX ignores it (ROADMAP.md, queue 3)."""
+        if speaker_wav and getattr(self.speaker_manager, "encoder", None) is None:
+            raise NotImplementedError("a d-vector from `speaker_wav` needs a speaker encoder: attach one with "
+                                      "`speaker_manager.init_encoder(model_path, config_path)`")
         speaker_id = None
         d_vector = None
         if self.speaker_manager is not None and getattr(self.speaker_manager, "name_to_id", None):
@@ -163,6 +168,8 @@ class Synthesizer:
                         " [!] Looks like you are using a multi-speaker model. "
                         "You need to define either a `speaker_idx` or a `speaker_wav` to use a multi-speaker model."
                     )
+        if speaker_wav:
+            d_vector = self.speaker_manager.compute_embedding_from_clip(speaker_wav)
         return speaker_id, d_vector
 
     def resolve_language(self, language_name: str = ""):
@@ -198,7 +205,7 @@ class Synthesizer:
         if reference_wav is not None:
             return self.transfer_voice(reference_wav, speaker_name, reference_speaker_name, speaker_wav, seed)
         if style_wav is not None:
-            raise NotImplementedError("style references come with the models that read them (ROADMAP.md, M9)")
+            raise NotImplementedError("style references come with the models that read them (ROADMAP.md, M9b)")
         start = time.time()
         sens = self.split_into_sentences(text) if split_sentences else [text]
         if hasattr(self.tts_model, "synthesize"):

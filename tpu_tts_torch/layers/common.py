@@ -8,6 +8,15 @@ Counterparts of `tpu_tts/layers/common.py` (`Conv1d`:19, `WNConv1d`:46,
 a weight-normalised conv stores `parametrizations.weight.original0` (g, one
 norm per dim-0 slice) and `parametrizations.weight.original1` (v), as
 `torch.nn.utils.parametrizations.weight_norm` does.
+
+Mixed precision (VITS's own route, `tpu_tts/layers/common.py`:59-95 and
+the flax modules' `dtype`): a module with a `compute_dtype` attribute
+computes in it once `set_compute_dtype` has set it. A weight-normalised
+conv folds g·v/‖v‖ in its parameters' float32 and then casts the kernel,
+the input and the bias; a 1×1 projection through `project` casts the same
+three (flax's `Dense(dtype=)`). What such a module returns is combined
+with float32 tensors by torch's type promotion, which is JAX's: bfloat16
+with float32 gives float32.
 """
 
 import math
@@ -66,11 +75,47 @@ class WeightNorm(nn.Module):
         return self._weight
 
 
+def set_compute_dtype(module: nn.Module, dtype) -> None:
+    """Set the compute dtype (None: the parameters' float32) of every module
+    inside `module` that has one."""
+    for m in module.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+
+
+def cast_conv(conv, x: torch.Tensor, w: torch.Tensor, b=None, **kwargs) -> torch.Tensor:
+    """`conv(x, w) + b` in `w`'s dtype, `x` and `b` cast to it. In bfloat16
+    the conv's output is rounded and the bias added in bfloat16, as in the
+    flax modules. On the CPU a bfloat16 conv runs in float32 on the rounded
+    operands and rounds its output, the same function (bfloat16 operands, a
+    float32 sum) as XLA's CPU backend computes; torch 2.13's CPU bfloat16
+    `conv_transpose1d` gives wrong input gradients at some widths (16 → 8)."""
+    x = x.to(w.dtype)
+    if w.dtype != torch.bfloat16:
+        return conv(x, w, b, **kwargs)
+    if x.device.type == "cpu":
+        y = conv(x.float(), w.float(), **kwargs).to(torch.bfloat16)
+    else:
+        y = conv(x, w, **kwargs)
+    return y if b is None else y + b.to(y.dtype).reshape(-1, *([1] * (y.ndim - 2)))
+
+
+def project(conv: nn.Conv1d, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """`conv(x)`, or with `dtype` its input, weight and bias cast to `dtype`
+    first (flax's `Dense(dtype=)`)."""
+    if dtype is None:
+        return conv(x)
+    return cast_conv(F.conv1d, x, conv.weight.to(dtype), conv.bias, stride=conv.stride, padding=conv.padding,
+                     dilation=conv.dilation, groups=conv.groups)
+
+
 class WNConv1d(nn.Module):
-    """Weight-normalised conv with (k//2)·d zero padding on both sides."""
+    """Weight-normalised conv with (k//2)·d zero padding on both sides. The
+    input is cast to the kernel's dtype, as in the flax module."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1, dilation: int = 1):
         super().__init__()
+        self.compute_dtype = None
         self.kernel_size = kernel_size
         self.dilation = dilation
         self.parametrizations = nn.ModuleDict({"weight": WeightNorm((out_channels, in_channels, kernel_size))})
@@ -83,7 +128,8 @@ class WNConv1d(nn.Module):
 
     def forward(self, x):
         pad = (self.kernel_size // 2) * self.dilation
-        return F.conv1d(x, self.weight, self.bias, padding=pad, dilation=self.dilation)
+        w = self.weight if self.compute_dtype is None else self.weight.to(self.compute_dtype)
+        return cast_conv(F.conv1d, x, w, self.bias, padding=pad, dilation=self.dilation)
 
 
 class LayerNorm(nn.Module):

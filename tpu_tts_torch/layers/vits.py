@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tpu_tts_torch.layers.common import WN, LayerNorm
+from tpu_tts_torch.layers.common import WN, LayerNorm, project
 from tpu_tts_torch.layers.transformer import RelativePositionTransformer
 from tpu_tts_torch.ops.helpers import sequence_mask
 
@@ -345,6 +345,7 @@ class VitsPosteriorEncoder(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, hidden_channels: int, kernel_size: int,
                  dilation_rate: int, num_layers: int, cond_channels: int = 0):
         super().__init__()
+        self.compute_dtype = None
         self.out_channels = out_channels
         self.pre = nn.Conv1d(in_channels, hidden_channels, 1)
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, num_layers, cond_channels)
@@ -352,9 +353,11 @@ class VitsPosteriorEncoder(nn.Module):
 
     def forward(self, x, x_lengths, noise: torch.Tensor, g=None):
         """x `[B, C_spec, T]`, x_lengths `[B]`, noise `[B, C_out, T]` the
-        standard-normal ε."""
+        standard-normal ε. With a compute dtype, `pre` and the WN compute in
+        it and the statistics leave in float32 (`tpu_tts/layers/vits.py`:
+        394-411)."""
         x_mask = sequence_mask(x_lengths, x.shape[2]).to(x.dtype)[:, None, :]
-        h = self.enc(self.pre(x) * x_mask, x_mask, g=g)
+        h = self.enc(project(self.pre, x, self.compute_dtype) * x_mask, x_mask, g=g)
         stats = self.proj(h) * x_mask
         m, logs = torch.split(stats, self.out_channels, dim=1)
         z = (m + noise * torch.exp(logs)) * x_mask
@@ -362,11 +365,13 @@ class VitsPosteriorEncoder(nn.Module):
 
 
 class ResidualCouplingLayer(nn.Module):
-    """Mean-only affine coupling with a WN core."""
+    """Mean-only affine coupling with a WN core; with a compute dtype, `pre`
+    and the WN compute in it and `post` in float32."""
 
     def __init__(self, channels: int, hidden_channels: int, kernel_size: int, dilation_rate: int, num_layers: int,
                  cond_channels: int = 0):
         super().__init__()
+        self.compute_dtype = None
         self.half = channels // 2
         self.pre = nn.Conv1d(self.half, hidden_channels, 1)
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, num_layers, cond_channels)
@@ -375,7 +380,7 @@ class ResidualCouplingLayer(nn.Module):
         nn.init.zeros_(self.post.bias)
 
     def _mean(self, x0, x_mask, g):
-        return self.post(self.enc(self.pre(x0) * x_mask, x_mask, g=g)) * x_mask
+        return self.post(self.enc(project(self.pre, x0, self.compute_dtype) * x_mask, x_mask, g=g)) * x_mask
 
     def forward(self, x, x_mask, g=None):
         """Mean-only, so its log-determinant is 0."""

@@ -11,9 +11,12 @@ of such files, merged.
 Training reads the rest: ids from dataset samples (`data_items`,
 `set_ids_from_data`), `save_ids_to_file`, `embeddings_by_names`, and the
 speaker, language and length balancers' sample weights
-(`_class_balancer_weights`:268-290). Computing an embedding from a clip
-needs the speaker encoder, which is not ported: `init_encoder` and
-`compute_embedding_from_clip` raise (ROADMAP.md, M9).
+(`_class_balancer_weights`:268-290). A manager built with an encoder
+checkpoint and config (or given one by `init_encoder`, `:160-170`)
+computes d-vectors from clips (`compute_embedding_from_clip`, `:172-180`):
+each clip loaded at the encoder's rate, its windowed embedding
+(`encoder/models.py`), the mean over the clips. The encoder runs on the
+manager's `device`, the card unless told otherwise.
 """
 
 import bisect
@@ -69,10 +72,14 @@ class EmbeddingManager(BaseIDManager):
     """A store of d-vectors by clip and by speaker name."""
 
     def __init__(self, embedding_file_path="", id_file_path: str = "", encoder_model_path: str = "",
-                 encoder_config_path: str = ""):
+                 encoder_config_path: str = "", device=None):
         super().__init__(id_file_path)
         self.embeddings: Dict[str, Dict] = {}
         self.embeddings_by_name: Dict[str, List] = {}
+        self.device = device
+        self.encoder = None
+        self.encoder_config = None
+        self.encoder_ap = None
         if embedding_file_path:
             if isinstance(embedding_file_path, list):
                 self.load_embeddings_from_list_of_files(embedding_file_path)
@@ -115,21 +122,37 @@ class EmbeddingManager(BaseIDManager):
             raise ValueError(f" [!] {idx} has fewer embeddings than num_samples")
         return embeddings[:num_samples].mean(0)
 
-    def init_encoder(self, model_path: str, config_path: str) -> None:
-        raise NotImplementedError("the speaker encoder is not ported yet (ROADMAP.md, M9)")
+    def init_encoder(self, model_path: str, config_path: str, device=None) -> None:
+        """Load the speaker encoder (a port or Coqui checkpoint and its config)
+        and its `AudioProcessor`, on `device` (else the manager's)."""
+        from tpu_tts_torch.audio import AudioProcessor
+        from tpu_tts_torch.config import load_config
+        from tpu_tts_torch.encoder.models import setup_encoder_model
+
+        self.encoder_config = load_config(config_path)
+        self.encoder = setup_encoder_model(self.encoder_config, device=device or self.device)
+        self.encoder.load_checkpoint(self.encoder_config, model_path, eval=True)
+        self.encoder_ap = AudioProcessor.init_from_config(self.encoder_config)
 
     def compute_embedding_from_clip(self, wav_file) -> list:
-        raise NotImplementedError("d-vectors from a clip need the speaker encoder, not ported yet (ROADMAP.md, M9)")
+        """The mean d-vector of one clip or a list of clips (paths)."""
+        if self.encoder is None:
+            raise RuntimeError(" [!] Speaker encoder not initialized.")
+        files = wav_file if isinstance(wav_file, list) else [wav_file]
+        embs = [self.encoder.compute_embedding(self.encoder_ap.load_wav(f, sr=self.encoder_ap.sample_rate))
+                for f in files]
+        return np.stack(embs).mean(0).flatten().tolist()
 
 
 class SpeakerManager(EmbeddingManager):
     def __init__(self, data_items: Optional[List] = None, d_vectors_file_path="", speaker_id_file_path: str = "",
-                 encoder_model_path: str = "", encoder_config_path: str = ""):
+                 encoder_model_path: str = "", encoder_config_path: str = "", device=None):
         super().__init__(
             embedding_file_path=d_vectors_file_path,
             id_file_path=speaker_id_file_path,
             encoder_model_path=encoder_model_path,
             encoder_config_path=encoder_config_path,
+            device=device,
         )
         if data_items:
             self.set_ids_from_data(data_items, parse_key="speaker_name")

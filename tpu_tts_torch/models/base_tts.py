@@ -63,7 +63,7 @@ class BaseTTSModel:
             raise NotImplementedError("per-process data sharding comes with the data-parallel trainer (ROADMAP.md, M10)")
         for key in ("compute_linear_spec", "compute_f0", "compute_energy", "use_attn_priors"):
             if getattr(config, key, False):
-                raise NotImplementedError(f"`{key}` comes with the models that read it (ROADMAP.md, M9)")
+                raise NotImplementedError(f"`{key}` comes with the models that read it (ROADMAP.md, M9b)")
         dataset = TTSDataset(
             outputs_per_step=getattr(config, "r", 1),
             samples=samples,

@@ -34,6 +34,28 @@ run with its parameters frozen, the real half without gradients. A batch's
 forward as they condition inference (multi-speaker, multilingual and
 d-vector training).
 
+Mixed precision (`mixed_precision`, `tpu_tts/models/vits.py`:100,149-152,
+373,389,400; `handles_mixed_precision`): `init_training` gives the
+posterior encoder's `pre` and WN, the couplings' `pre` and WN, the decoder
+(but its `conv_post` and tanh) and the discriminator's convs a bfloat16
+compute dtype, on float32 parameters; the text encoder and the duration
+predictor stay float32, and the losses read float32. A model loaded for
+serving keeps float32 throughout, K1 included.
+
+With `encoder_sample_rate` (`:466-477`, `:225-233`) the posterior's
+spectrogram comes from the waveform resized to the encoder's rate
+(`audio.torch_transforms.resize_linear`, JAX's antialiased
+`jax.image.resize`), with `spec_lengths // f`; the decoder reads the
+segment of z upsampled ×f at ×f the offsets, and the G step's mel target is
+the mel of the real waveform's segment.
+
+The speaker-consistency loss (`use_speaker_encoder_as_loss`, `:564-594`):
+minus the mean cosine of the frozen speaker encoder's embeddings of the real
+and the generated segments (centred log-mels at the encoder's audio
+settings), × `speaker_encoder_loss_alpha`. The encoder is the speaker
+manager's (`SpeakerManager(encoder_model_path=...)` or `init_encoder`);
+without one `init_training` raises, where JAX silently drops the term.
+
 Voice conversion (`voice_conversion`:357 and :747 in JAX) takes a source
 waveform through the posterior encoder and the forward flow with the source
 speaker's g, back through the reverse flow and the decoder (K1 on the card)
@@ -52,7 +74,7 @@ import torch.nn.functional as F
 
 from tpu_tts_torch.audio import AudioProcessor
 from tpu_tts_torch.audio import torch_transforms as tt
-from tpu_tts_torch.layers.common import DurationPredictor
+from tpu_tts_torch.layers.common import DurationPredictor, set_compute_dtype
 from tpu_tts_torch.layers.losses import discriminator_loss, feature_loss, generator_loss, kl_loss
 from tpu_tts_torch.layers.vits import (
     ResidualCouplingBlocks,
@@ -219,6 +241,10 @@ class VitsNet(nn.Module):
         logs_p_ex = torch.matmul(logs_p, attn)
         z_slice, slice_ids = rand_segments(z, spec_lengths, self.args.spec_segment_size, let_short_samples=True,
                                            pad_short=True, u=draws.get("segments"), generator=generator)
+        f = self.interp_factor
+        if f > 1:  # the segment of z at the decoder's rate
+            slice_ids = slice_ids * f
+            z_slice = segment(self.upsample_z(z), slice_ids, self.args.spec_segment_size * f, pad_short=True)
         o = self.waveform_decoder(z_slice, g=g)
         return {"model_outputs": o, "alignments": attn.transpose(1, 2), "m_p": m_p_ex, "logs_p": logs_p_ex, "z": z,
                 "z_p": z_p, "m_q": m_q, "logs_q": logs_q, "y_mask": y_mask, "loss_duration": loss_duration,
@@ -280,6 +306,8 @@ class VitsNet(nn.Module):
 class Vits(BaseTTSModel):
     # text ids are right-padded to this grid, as in the JAX model
     TEXT_BUCKET = 32
+    # mixed precision through the modules' compute dtype, not the trainer's generic cast
+    handles_mixed_precision = True
 
     def __init__(self, config, ap=None, tokenizer=None, device=None, speaker_manager=None, language_manager=None):
         super().__init__(config, ap, tokenizer, device, speaker_manager, language_manager)
@@ -297,20 +325,22 @@ class Vits(BaseTTSModel):
     # ------------------------------------------------------------ training
     def init_training(self):
         """Build what training adds to the inference net: the posterior
-        encoder (in the net) and the discriminator (`self.disc`). Idempotent."""
+        encoder (in the net) and the discriminator (`self.disc`), and with
+        `mixed_precision` set the bfloat16 compute dtype. Idempotent."""
         a = self.args
-        if a.use_speaker_encoder_as_loss:
-            raise NotImplementedError("use_speaker_encoder_as_loss needs the speaker encoder (ROADMAP.md, M9)")
-        if a.encoder_sample_rate:
-            raise NotImplementedError("training with encoder_sample_rate is not ported yet (ROADMAP.md, M6)")
-        if getattr(self.config, "mixed_precision", False):
-            raise NotImplementedError("mixed-precision training is not ported yet (ROADMAP.md, M6)")
+        if a.use_speaker_encoder_as_loss and getattr(self.speaker_manager, "encoder", None) is None:
+            raise ValueError("use_speaker_encoder_as_loss needs a speaker encoder: build the speaker manager with "
+                             "encoder_model_path/encoder_config_path or call its init_encoder()")
         if not hasattr(self.net, "posterior_encoder"):
             self.net.add_posterior_encoder()
             self.net.posterior_encoder.to(self.device)
         if self.disc is None:
             self.disc = VitsDiscriminator(tuple(a.periods_multi_period_discriminator),
                                           a.use_spectral_norm_disriminator).to(self.device)
+        if getattr(self.config, "mixed_precision", False):
+            for part in (self.net.posterior_encoder, self.net.flow, self.net.waveform_decoder, self.disc):
+                set_compute_dtype(part, torch.bfloat16)
+            self.net.waveform_decoder.conv_post.compute_dtype = None  # conv_post and the tanh stay float32
 
     def num_optimizers(self) -> int:
         return 2
@@ -396,9 +426,14 @@ class Vits(BaseTTSModel):
         return self.mel_from_spec(self.spec_from_wav(wav))
 
     def forward_g(self, batch: Dict, generator=None, draws=None):
-        """The generator's training forward on a batch; also returns its spectrogram."""
-        spec = self.spec_from_wav(batch["waveform"])
-        outputs = self.net(batch["text_input"], batch["text_lengths"], spec, batch["mel_lengths"],
+        """The generator's training forward on a batch; also returns its
+        spectrogram (at the encoder's rate with `encoder_sample_rate`)."""
+        wav, spec_lengths = batch["waveform"], batch["mel_lengths"]
+        f = self.net.interp_factor
+        if f > 1:
+            wav, spec_lengths = tt.resize_linear(wav, wav.shape[-1] // f), spec_lengths // f
+        spec = self.spec_from_wav(wav)
+        outputs = self.net(batch["text_input"], batch["text_lengths"], spec, spec_lengths,
                            speaker_ids=batch.get("speaker_ids"), d_vectors=batch.get("d_vectors"),
                            language_ids=batch.get("language_ids"), generator=generator, draws=draws)
         return outputs, spec
@@ -427,7 +462,11 @@ class Vits(BaseTTSModel):
             with torch.no_grad():
                 _, feats_real = self.disc(wav_seg)
         mel_hat = self.mel_from_wav(y_hat)
-        mel_seg = segment(self.mel_from_spec(spec), outputs["slice_ids"], self.args.spec_segment_size, pad_short=True)
+        if self.net.interp_factor > 1:  # the spectrogram's frames are at the encoder's rate
+            mel_seg = self.mel_from_wav(wav_seg)
+        else:
+            mel_seg = segment(self.mel_from_spec(spec), outputs["slice_ids"], self.args.spec_segment_size,
+                              pad_short=True)
         T = min(mel_hat.shape[2], mel_seg.shape[2])
         logs = {
             "loss_mel": torch.mean(torch.abs(mel_seg[..., :T] - mel_hat[..., :T])) * c.mel_loss_alpha,
@@ -438,8 +477,25 @@ class Vits(BaseTTSModel):
             "loss_duration": outputs["loss_duration"] * c.dur_loss_alpha,
         }
         loss = sum(logs.values())
+        if self.args.use_speaker_encoder_as_loss:
+            logs["loss_spk_encoder"] = self.speaker_consistency_loss(wav_seg, y_hat)
+            loss = loss + logs["loss_spk_encoder"] * getattr(c, "speaker_encoder_loss_alpha", 9.0)
         logs["loss_gen_total"] = loss
         return loss, logs
+
+    def speaker_consistency_loss(self, wav_real, wav_fake) -> torch.Tensor:
+        """Minus the mean cosine of the frozen encoder's L2-normalised
+        embeddings of the real and generated segments `[B, 1, T]`; the
+        gradient reaches the generator through the fake side's mel."""
+        enc = self.speaker_manager.encoder
+        a = enc.audio
+        wavs = torch.cat([wav_real, wav_fake], dim=0)[:, 0].float()
+        mel = tt.wav_to_mel(wavs, fft_size=a["fft_size"], num_mels=a["num_mels"], sample_rate=a["sample_rate"],
+                            hop_length=a["hop_length"], win_length=a["win_length"], fmin=a.get("mel_fmin", 0.0),
+                            fmax=a.get("mel_fmax"), center=True)
+        with _frozen(enc.net):
+            gt, syn = torch.chunk(enc.net(mel, l2_norm=True), 2, dim=0)
+        return -torch.mean(torch.sum(gt * syn, dim=-1))
 
     def get_optimizer(self):
         """[D, G] optimizers (`train/optimizers.py`), each with its own lr

@@ -27,11 +27,13 @@ every stage's MRF stack goes through K1 on the card (72 launches a call).
 JAX's overlap tail then shrinks (`tpu_tts/models/xtts.py`:854), so the
 next chunk's context and crop misalign.
 
-The speaker embedding comes from `speaker_proj` of the mean latent. A
-Coqui checkpoint carries Coqui's decoder-side ResNet speaker encoder
-instead; that encoder is not ported (ROADMAP.md, M9), so such a model
-serves its bundled speakers (`speakers_xtts.pth`) and raises on
-`speaker_wav`.
+The speaker embedding comes from `speaker_proj` of the mean latent, or,
+for a Coqui checkpoint, from Coqui's decoder-side ResNet speaker encoder
+(`hifigan_decoder.speaker_encoder`, `tpu_tts/models/xtts.py`:107-117,
+141-147: input 64 mels, 512 wide, its batch norms frozen). Its input
+(`get_conditioning_latents`, `:517-527`) is the cloning wav resized to
+16 kHz (JAX's antialiased linear resize), preemphasised by 0.97, as a
+centred 64-band log-mel (fft 512, win 400, hop 160).
 
 Fine-tuning the GPT (`tpu_tts/models/xtts.py`: `train_forward`:156,
 `load_dvae`:540, `_style_mel`/`_dvae_mel`:572-591, `loss_fn`:593,
@@ -55,17 +57,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tpu_tts_torch.audio.torch_transforms import torchaudio_mel, wav_to_mel
+from tpu_tts_torch.audio.torch_transforms import resize_linear, torchaudio_mel, wav_to_mel
 from tpu_tts_torch.configs.xtts_config import XttsArgs
+from tpu_tts_torch.encoder.models import ResNetSpeakerEncoder
 from tpu_tts_torch.layers.xtts.gpt import XttsGPT
 from tpu_tts_torch.layers.xtts.tokenizer import VoiceBpeTokenizer
 from tpu_tts_torch.models.base_tts import BaseTTSModel
 from tpu_tts_torch.ops.helpers import bucket_len
 from tpu_tts_torch.vocoder.models.hifigan_generator import HifiganGenerator
-
-NO_SPEAKER_ENCODER = ("this XTTS checkpoint computes speaker embeddings with Coqui's ResNet speaker encoder, which "
-                      "is not ported yet (ROADMAP.md, M9): use a bundled `speaker_id`")
-
 
 def linear_interp(x: torch.Tensor, scale: float) -> torch.Tensor:
     """`F.interpolate(x, scale_factor=scale, mode="linear",
@@ -111,8 +110,10 @@ def _masked_ce(logits, targets, mask):
 
 class XttsNet(nn.Module):
     """The inference modules of XTTS-v2; attribute names are the Coqui
-    state-dict prefixes (`gpt.*`, `hifigan_decoder.waveform_decoder.*`), and
-    `speaker_proj` the port's and JAX's speaker projection."""
+    state-dict prefixes (`gpt.*`, `hifigan_decoder.waveform_decoder.*`,
+    `hifigan_decoder.speaker_encoder.*`), and `speaker_proj` the port's and
+    JAX's speaker projection, which a net with Coqui's speaker encoder
+    lacks."""
 
     def __init__(self, args: XttsArgs, ref_speaker_encoder: bool = False):
         super().__init__()
@@ -134,6 +135,9 @@ class XttsNet(nn.Module):
             resblock_kernel_sizes=(3, 7, 11), resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
             cond_channels=a.d_vector_dim, cond_in_each_up_layer=True,
         )})
+        if ref_speaker_encoder:  # proj_dim 512 whatever d_vector_dim, as Coqui's HifiDecoder hard-codes it
+            self.hifigan_decoder["speaker_encoder"] = ResNetSpeakerEncoder(input_dim=64, proj_dim=512,
+                                                                           norm_type="frozen_batch")
 
     # ---------------------------------------------------------- conditioning
     def cond_latents(self, mel):
@@ -141,12 +145,15 @@ class XttsNet(nn.Module):
         return self.gpt.conditioning_perceiver(self.gpt.conditioning_encoder(mel).transpose(1, 2))
 
     @torch.no_grad()
-    def compute_conditioning(self, mel):
+    def compute_conditioning(self, mel, spk_mel=None):
         """Reference mel `[B, C_mel, T]` → (gpt cond latents `[B, n, C]`,
-        L2-normalised speaker embedding `[B, d]`)."""
+        L2-normalised speaker embedding `[B, d]`): the speaker encoder's of
+        `spk_mel` `[B, 64, T']` (its first 64 mel bands without one), or
+        `speaker_proj` of the mean latent."""
         latents = self.cond_latents(mel)
         if self.use_ref_speaker_encoder:
-            raise NotImplementedError(NO_SPEAKER_ENCODER)
+            enc = self.hifigan_decoder["speaker_encoder"]
+            return latents, enc(spk_mel if spk_mel is not None else mel[:, :64], l2_norm=True)
         spk = self.speaker_proj(latents.mean(dim=1))
         return latents, spk / torch.clamp(torch.linalg.vector_norm(spk, dim=-1, keepdim=True), min=1e-12)
 
@@ -387,8 +394,9 @@ class Xtts(BaseTTSModel):
         return loss, {"loss_text_ce": ce_t, "loss_mel_ce": ce_c}
 
     def init_training(self):
-        if getattr(self.config, "mixed_precision", False):
-            raise NotImplementedError("mixed-precision training is not ported yet (ROADMAP.md, M6)")
+        """Nothing to build: with `mixed_precision` the trainer's generic cast
+        runs the net in bfloat16 (`train/precision.py`), as `tpu_tts` does,
+        while the DVAE, outside the net, stays float32 on the cast waveform."""
 
     def on_init_start(self, trainer):
         """Before the first step: the frozen DVAE, and the base model
@@ -499,12 +507,16 @@ class Xtts(BaseTTSModel):
     # ---------------------------------------------------------- conditioning
     def get_conditioning_latents(self, audio: np.ndarray, sr: int = 22050):
         """Cloning audio → (gpt_cond_latent `[1, n, C]`, speaker_embedding `[1, d]`)."""
-        if self.net.use_ref_speaker_encoder:
-            raise NotImplementedError(NO_SPEAKER_ENCODER)
         wav = self._float(audio).reshape(1, -1)
         mel = wav_to_mel(wav, fft_size=1024, num_mels=80, sample_rate=sr, hop_length=256, win_length=1024, fmin=0,
                          fmax=None, center=False)
-        return self.net.compute_conditioning(mel)
+        spk_mel = None
+        if self.net.use_ref_speaker_encoder:
+            wav16 = resize_linear(wav, int(wav.shape[1] * 16000 / sr))
+            wav16 = torch.cat([wav16[:, :1], wav16[:, 1:] - 0.97 * wav16[:, :-1]], dim=1)
+            spk_mel = wav_to_mel(wav16, fft_size=512, num_mels=64, sample_rate=16000, hop_length=160, win_length=400,
+                                 fmin=0, fmax=None, center=True)
+        return self.net.compute_conditioning(mel, spk_mel)
 
     # ------------------------------------------------------------- inference
     def _text_ids(self, text, language, text_tokens) -> torch.Tensor:

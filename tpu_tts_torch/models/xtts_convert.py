@@ -18,9 +18,11 @@ the port's): weight-norm pairs in either form, a plain `conv_pre.weight`
 or `conv_post.weight` (Coqui's HifiDecoder has no weight norm there) split
 into g and v, a missing `conv_post.bias` zero-filled (Coqui has none, JAX
 and the port add zero), GPT-2's attention buffers and the mel spectrogram
-of Coqui's speaker encoder skipped. A checkpoint with
+of Coqui's speaker encoder (`.torch_spec.`) skipped. A checkpoint with
 `hifigan_decoder.speaker_encoder.*` and no `speaker_proj` rebuilds the net
-without `speaker_proj`. The legacy (non-perceiver) XTTS raises.
+with Coqui's ResNet speaker encoder in its place, whose weights and batch
+norm statistics load by name (`tpu_tts/models/xtts_convert.py`:108-114).
+The legacy (non-perceiver) XTTS raises.
 """
 
 import re
@@ -152,8 +154,8 @@ def load_xtts_checkpoint(model, checkpoint_path: str, strict: bool = True) -> Di
 
 def load_xtts_state(model, state: Dict, strict: bool = True) -> None:
     """Load a port or Coqui XTTS-v2 state dict into `model.net`, rebuilding
-    the net without `speaker_proj` when it carries Coqui's speaker encoder
-    instead."""
+    the net with Coqui's speaker encoder in place of `speaker_proj` when the
+    state dict carries it."""
     from tpu_tts_torch.models.xtts import XttsNet
 
     sd = {k: v for k, v in state.items() if isinstance(v, torch.Tensor)}

@@ -15,11 +15,21 @@ guards, in its order:
 
 With `accum_steps` k > 1 the gradients of k calls are averaged and applied
 once, as `optax.MultiSteps`.
+
+`radam` and `rmsprop` are written out here, because `torch.optim`'s differ
+from optax's: `torch.optim.RAdam` adds eps to the uncorrected sqrt(v) and
+rectifies when rho_t > 5, where `optax.scale_by_radam` divides by
+sqrt(v̂) + eps and rectifies when rho_t ≥ 5; `torch.optim.RMSprop` adds eps
+outside the square root, where `optax.scale_by_rms` takes rsqrt(ν + eps).
+The JAX package's `rmsprop` reads `alpha` as the decay, 0.9 by default
+(torch's default is 0.99), and chains `add_decayed_weights` before `radam`
+when `weight_decay` is set.
 """
 
 import math
 from typing import Callable, Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
@@ -86,6 +96,86 @@ def get_scheduler(name: Optional[str], params: Dict, base_lr: float) -> Union[fl
     if name in ("stepwisegradual",):  # "StepwiseGradualLR" with the LR suffix stripped
         return stepwise_gradual(base_lr, params.get("gradual_learning_rates"))
     raise ValueError(f" [!] Unknown lr scheduler {name}")
+
+
+def _pow32(base: float, n: int) -> np.float32:
+    """base**n as XLA computes optax's bias corrections inside a compiled
+    step: the base rounded to float32, the power taken exactly, the result
+    rounded to float32."""
+    return np.float32(float(np.float32(base)) ** n)
+
+
+class OptaxRAdam(torch.optim.Optimizer):
+    """`optax.radam` at the group's lr: Adam's moments, their bias
+    corrections, and the rectified step r·m̂/(sqrt(v̂) + eps) once
+    rho_t ≥ 5, the plain m̂ before; with `weight_decay` the gradient gets
+    weight_decay·p first (`optax.add_decayed_weights`). The scalars (the
+    corrections, rho_t and r) are computed in float32 as optax computes
+    them, so the step count where rho_t crosses 5 and the steps agree."""
+
+    def __init__(self, params, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=0.0, betas=tuple(betas), eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        f32 = np.float32
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            (b1, b2), eps, wd = group["betas"], group["eps"], group["weight_decay"]
+            grads = [p.grad for p in params]
+            if wd:
+                grads = torch._foreach_add(grads, params, alpha=wd)
+            states = [self.state[p] for p in params]
+            for st, p in zip(states, params):
+                if not st:
+                    st.update(step=0, mu=torch.zeros_like(p), nu=torch.zeros_like(p))
+            mus, nus = [st["mu"] for st in states], [st["nu"] for st in states]
+            torch._foreach_mul_(mus, b1)  # (1 - b1)·g + b1·m, optax's order
+            torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - b1))
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
+            t = states[0]["step"] + 1
+            for st in states:
+                st["step"] = t
+            b2t = _pow32(b2, t)
+            rho_inf = 2.0 / (1.0 - b2) - 1.0
+            rho = f32(rho_inf) - f32(2 * t) * b2t / (f32(1.0) - b2t)
+            updates = torch._foreach_div(mus, float(f32(1.0) - _pow32(b1, t)))
+            if rho >= 5.0:
+                r = np.sqrt((rho - f32(4.0)) * (rho - f32(2.0)) * f32(rho_inf)
+                            / (f32((rho_inf - 4.0) * (rho_inf - 2.0)) * rho))
+                denom = torch._foreach_sqrt(torch._foreach_div(nus, float(f32(1.0) - b2t)))
+                torch._foreach_add_(denom, eps)
+                torch._foreach_mul_(updates, float(r))
+                torch._foreach_div_(updates, denom)
+            torch._foreach_add_(params, torch._foreach_mul(updates, -group["lr"]))
+
+
+class OptaxRMSprop(torch.optim.Optimizer):
+    """`optax.rmsprop` at the group's lr: ν = decay·ν + (1 − decay)·g², the
+    step g·rsqrt(ν + eps)."""
+
+    def __init__(self, params, decay: float = 0.9, eps: float = 1e-8):
+        super().__init__(params, dict(lr=0.0, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            for p in params:
+                if not self.state[p]:
+                    self.state[p]["nu"] = torch.zeros_like(p)
+            nus = [self.state[p]["nu"] for p in params]
+            torch._foreach_mul_(nus, group["decay"])
+            torch._foreach_addcmul_(nus, grads, grads, value=1 - group["decay"])
+            scale = torch._foreach_rsqrt(torch._foreach_add(nus, group["eps"]))
+            torch._foreach_mul_(scale, grads)
+            torch._foreach_add_(params, scale, alpha=-group["lr"])
 
 
 class TrainOptimizer:
@@ -157,7 +247,7 @@ def get_optimizer(name: str, params: Dict, model_params: Sequence[torch.nn.Param
                   schedule: Union[float, Schedule, None] = None, optimizer_idx: Optional[int] = None,
                   lr: float = 0.001) -> TrainOptimizer:
     """A `TrainOptimizer` by the JAX package's optimizer names (adam, adamw,
-    sgd). `optimizer_idx` picks this optimizer's entry when `config.grad_clip`
+    sgd, radam, rmsprop). `optimizer_idx` picks this optimizer's entry when `config.grad_clip`
     is a list (D = 0, G = 1)."""
     name = (name or "adam").lower()
     params = dict(params or {})
@@ -172,8 +262,10 @@ def get_optimizer(name: str, params: Dict, model_params: Sequence[torch.nn.Param
         inner = torch.optim.AdamW(model_params, lr=0.0, betas=betas, eps=eps, weight_decay=weight_decay)
     elif name == "sgd":
         inner = torch.optim.SGD(model_params, lr=0.0, momentum=params.pop("momentum", 0.0))
-    elif name in ("radam", "rmsprop"):
-        raise NotImplementedError(f"optimizer `{name}` is not ported yet (ROADMAP.md, M6)")
+    elif name == "radam":
+        inner = OptaxRAdam(model_params, betas=betas, eps=eps, weight_decay=weight_decay)
+    elif name == "rmsprop":
+        inner = OptaxRMSprop(model_params, decay=params.pop("alpha", 0.9), eps=eps)
     else:
         raise ValueError(f" [!] Unknown optimizer {name}")
     grad_clip = getattr(config, "grad_clip", 0.0) if config is not None else 0.0

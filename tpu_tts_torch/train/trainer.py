@@ -18,11 +18,22 @@ device, seeded with `training_seed`; dropout draws from torch's default
 generators, which the trainer seeds too. A checkpoint holds all of their
 states, so a resumed run draws what the uninterrupted run would have.
 
+Mixed precision (`mixed_precision`, `train/precision.py`, JAX's `:254-279`):
+a model that handles it itself (VITS) computes its chosen modules in
+bfloat16; any other gets the generic cast, its `net`'s parameters and the
+batch in bfloat16 for the forward. Either way the parameters, gradients,
+optimizer state and losses stay float32.
+
+The dashboard logger (JAX's `:200-210`): with `dashboard_logger ==
+"tensorboard"` and `tensorboardX` installed, a `SummaryWriter` under
+`<output_path>/logs` gets every step's `train/<k>` scalars and each eval's
+`eval/loss`, and is flushed at the end of each epoch; without the package,
+nothing is logged.
+
 Not ported, by design or not yet (ROADMAP.md): the mesh and its shardings,
 multi-process data parallelism (M10), the fused single-program step, buffer
-donation and the jax.profiler window (XLA's), the dashboard logger, the
-per-epoch `test_run` synthesis (a stub in `tpu_tts` too), and
-`mixed_precision` (raises, M6).
+donation and the jax.profiler window (XLA's), and the per-epoch `test_run`
+synthesis (a stub in `tpu_tts` too, so no audio reaches the logger).
 """
 
 import os
@@ -36,6 +47,7 @@ import torch
 from tpu_tts_torch.config.base import Coqpit
 from tpu_tts_torch.device import resolve_device
 from tpu_tts_torch.train import checkpoint as ckpt_io
+from tpu_tts_torch.train import precision
 
 
 @dataclass
@@ -107,15 +119,38 @@ class Trainer:
                 raise ValueError(f"grad_accum_steps must be >= 1, got {args.grad_accum_steps}")
         n_params = sum(p.numel() for i in range(self.num_optimizers) for p in model.optimizer_params(i))
         print(f"\n > Model has {n_params} parameters", flush=True)
+        self.autocast = precision.autocast_enabled(config, model)
+        self.keep_fp32_keys = tuple(getattr(model, "mp_keep_fp32_batch_keys", ()) or ())
+        self.dashboard_logger = self._init_dashboard_logger()
 
         if args.continue_path:
             self._restore(args.continue_path, full_state=True)
         elif args.restore_path:
             self._restore(args.restore_path, full_state=False)
 
+    def _init_dashboard_logger(self):
+        if getattr(self.config, "dashboard_logger", "tensorboard") != "tensorboard":
+            return None
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            return None
+        return SummaryWriter(os.path.join(self.output_path, "logs"))
+
     # ------------------------------------------------------------------ steps
     def _to_device(self, batch: Dict) -> Dict:
         return {k: v.to(self.device, non_blocking=True) if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
+
+    def _loss(self, batch: Dict, idx: int):
+        """The model's (loss, logs) for optimizer `idx`; under the generic
+        cast its net's parameters and the batch are bfloat16 for the forward
+        and the loss is read in float32."""
+        if not self.autocast:
+            return self.model.loss_fn(batch, idx, generator=self.generator)
+        net = self.model.net
+        params16, batch16 = precision.autocast_args(dict(net.named_parameters()), batch, self.keep_fp32_keys)
+        loss, logs = precision.call_cast(net, params16, self.model.loss_fn, batch16, idx, generator=self.generator)
+        return loss.float(), logs
 
     def train_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """One step: each optimizer's loss, backward and update in index
@@ -125,7 +160,7 @@ class Trainer:
         self.model.train(True)
         logs_all = {}
         for idx, opt in enumerate(self.optimizers):
-            loss, logs = self.model.loss_fn(batch, idx, generator=self.generator)
+            loss, logs = self._loss(batch, idx)
             loss.backward()
             opt.step()
             prefix = "" if self.num_optimizers == 1 else f"opt{idx}_"
@@ -163,6 +198,9 @@ class Trainer:
                 for step_no, dev_logs in pending:
                     flogs = {k: float(v) for k, v in dev_logs.items()}
                     self.keep_avg_train.update_values({f"avg_{k}": v for k, v in flogs.items()})
+                    if self.dashboard_logger is not None:
+                        for k, v in flogs.items():
+                            self.dashboard_logger.add_scalar(f"train/{k}", v, step_no)
                     last = (step_no, flogs)
                 pending.clear()
                 return last
@@ -194,6 +232,8 @@ class Trainer:
             if target is not None:
                 self.best_loss = ckpt_io.save_best_model(target, self.best_loss, self._state_dict(),
                                                          self.output_path, self.total_steps_done, c)
+            if self.dashboard_logger is not None:
+                self.dashboard_logger.flush()
         self.save_checkpoint()
         self.model.train(False)
 
@@ -206,12 +246,14 @@ class Trainer:
         for batch in eval_loader:
             batch = self._to_device(batch)
             for idx in range(self.num_optimizers):
-                losses_by_opt[idx].append(self.model.loss_fn(batch, idx, generator=self.generator)[0])
+                losses_by_opt[idx].append(self._loss(batch, idx)[0])
         if any(losses_by_opt):
             avg = float(sum(np.mean([float(x) for x in per_opt]) for per_opt in losses_by_opt if per_opt))
         else:
             avg = float("nan")
         print(f" | > EVAL loss: {avg:.5f}")
+        if self.dashboard_logger is not None:
+            self.dashboard_logger.add_scalar("eval/loss", avg, self.total_steps_done)
         return avg
 
     # ------------------------------------------------------------- checkpoint

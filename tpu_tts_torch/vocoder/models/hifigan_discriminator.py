@@ -11,6 +11,12 @@ VITS checkpoint's `disc.*` tensors load by name. Spectral norm is the JAX
 package's stateless kind: three power iterations from a uniform vector on
 every call, on a plain `weight`; a Coqui spectral-norm checkpoint
 (`weight_orig`, `weight_u`, `weight_v`) does not load.
+
+Mixed precision (`tpu_tts/vocoder/models/hifigan_discriminator.py`:42-73):
+with a bfloat16 `compute_dtype` (`layers.common.set_compute_dtype`) each
+conv normalises its float32 parameters in float32, then computes in
+bfloat16; its features and scores are bfloat16, which the losses read in
+float32.
 """
 
 import math
@@ -20,7 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tpu_tts_torch.layers.common import WeightNorm
+from tpu_tts_torch.layers.common import WeightNorm, cast_conv
 
 LRELU_SLOPE = 0.1
 
@@ -44,6 +50,7 @@ class NormConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: Sequence[int], stride: Sequence[int],
                  padding: Sequence[int], groups: int = 1, use_spectral_norm: bool = False):
         super().__init__()
+        self.compute_dtype = None
         self.stride, self.padding, self.groups = tuple(stride), tuple(padding), groups
         self.conv = F.conv1d if len(kernel_size) == 1 else F.conv2d
         shape = (out_channels, in_channels // groups) + tuple(kernel_size)
@@ -61,7 +68,8 @@ class NormConv(nn.Module):
         return _spectral_normalize(self.weight)
 
     def forward(self, x):
-        return self.conv(x, self.kernel(), self.bias, stride=self.stride, padding=self.padding, groups=self.groups)
+        w = self.kernel() if self.compute_dtype is None else self.kernel().to(self.compute_dtype)
+        return cast_conv(self.conv, x, w, self.bias, stride=self.stride, padding=self.padding, groups=self.groups)
 
 
 class DiscriminatorP(nn.Module):

@@ -14,8 +14,14 @@ in `tpu_tts/ops/hifigan_pallas.py::hifigan_apply_pallas`. With
 `cond_in_each_up_layer` (the XTTS decoder), a 1×1 projection `conds.{i}` of
 g is also added after each `ups.{i}`, before the stage's MRF, outside the
 kernel too (`tpu_tts/vocoder/models/hifigan_generator.py`:128-129). As in the flax
-generator, the final leaky relu has slope 0.01; the port's generator runs
-in float32 throughout (the kernel also takes bfloat16).
+generator, the final leaky relu has slope 0.01.
+
+Mixed precision (`tpu_tts/vocoder/models/hifigan_generator.py`:33-54,
+112-139): once `layers.common.set_compute_dtype` has given the generator
+bfloat16 (VITS training), `conv_pre`, `cond_layer`, the upsampling,
+`conds.{i}`, the resblocks and their mean compute in it, and the last leaky
+relu, `conv_post` and the tanh in float32; `Vits.init_training` keeps
+`conv_post` float32. Serving runs in float32 (K1 also takes bfloat16).
 """
 
 from typing import Dict, Sequence, Tuple
@@ -24,7 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tpu_tts_torch.layers.common import WeightNorm, WNConv1d
+from tpu_tts_torch.layers.common import WeightNorm, WNConv1d, cast_conv, project
 from tpu_tts_torch.ops.hifigan_mrf import LRELU_SLOPE, MrfStage, mrf_stack, pack_stage
 
 
@@ -35,6 +41,7 @@ class WNConvTranspose1d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int):
         super().__init__()
+        self.compute_dtype = None
         self.stride = stride
         self.padding = (kernel_size - stride) // 2
         self.parametrizations = nn.ModuleDict({"weight": WeightNorm((in_channels, out_channels, kernel_size))})
@@ -43,7 +50,8 @@ class WNConvTranspose1d(nn.Module):
 
     def forward(self, x):
         w = self.parametrizations["weight"]()
-        return F.conv_transpose1d(x, w, self.bias, stride=self.stride, padding=self.padding)
+        w = w if self.compute_dtype is None else w.to(self.compute_dtype)
+        return cast_conv(F.conv_transpose1d, x, w, self.bias, stride=self.stride, padding=self.padding)
 
 
 class ResBlock1(nn.Module):
@@ -101,6 +109,7 @@ class HifiganGenerator(nn.Module):
         cond_in_each_up_layer: bool = False,
     ):
         super().__init__()
+        self.compute_dtype = None  # of cond_layer and conds.{i}; the convs hold their own
         self.resblock_type = str(resblock_type)
         resblock_cls = ResBlock1 if self.resblock_type == "1" else ResBlock2
         self.num_kernels = len(resblock_kernel_sizes)
@@ -141,15 +150,15 @@ class HifiganGenerator(nn.Module):
         `cond_layer` (and `conds`)."""
         o = self.conv_pre(x)
         if g is not None and hasattr(self, "cond_layer"):
-            o = o + self.cond_layer(g)
+            o = o + project(self.cond_layer, g, self.compute_dtype)
         for i in range(self.num_upsamples):
             o = self.ups[i](F.leaky_relu(o, LRELU_SLOPE))
             if g is not None and hasattr(self, "conds"):
-                o = o + self.conds[i](g)
+                o = o + project(self.conds[i], g, self.compute_dtype)
             if self.resblock_type == "1" and not self.training:
                 o = mrf_stack(o, self.mrf_stage(i))
             else:
                 blocks = self.resblocks[i * self.num_kernels : (i + 1) * self.num_kernels]
                 o = sum(rb(o) for rb in blocks) / self.num_kernels
         # slope 0.01 here, as in the flax generator (torch's default)
-        return torch.tanh(self.conv_post(F.leaky_relu(o, 0.01)))
+        return torch.tanh(self.conv_post(F.leaky_relu(o.float(), 0.01)))
