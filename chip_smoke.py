@@ -160,7 +160,28 @@ result line:
    (ResBlock1, phase 16's d-vector file) with phase 16's encoder attached
    by `init_encoder`, one `/api/tts?speaker_wav=` request of 72 K1
    launches (`dvector vits speaker_wav`);
-18. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
+18. the GAN vocoders (M8): (a) K1 against its plain version at HiFi-GAN
+   V2's stage shapes (C = 64/32/16/8 at 256 mel frames) and at C = 24 and
+   48, float32 and bfloat16, with tile, launches, time, plain time and
+   bound (`kernel hifigan_mrf v2|narrow` lines); (b) Glow-TTS (phase 6's)
+   behind a default HiFi-GAN V1, then V2 (`upsample_initial_channel` 128),
+   each a Coqui-format `.pth` + `config.json` from a seed, over three
+   `/api/tts` requests: 72 K1 launches a sentence, the waveform within 1e-3
+   of the plain MRF, latency and profile lines; then the default multiband
+   MelGAN and UnivNet the same way, 0 K1 launches (`vocoder serve`); (c)
+   the LJSpeech HiFi-GAN recipe's settings (batch 32, `seq_len` 8192,
+   `pad_short` 2000, noise augmentation, lr 1e-4, float32) through
+   `Trainer.fit` on 64 + 10 seeded clips for 2 epochs of 2 steps: ms a step
+   (D, G, updates), peak memory, finite losses, every gradient nonzero, no
+   K1 launch (`vocoder train steps`); one more epoch against the same epoch
+   resumed (`vocoder train resume`); 20 steps on one batch lowering the G
+   loss (`vocoder train overfit`); the run directory served behind Glow-TTS,
+   72 launches a sentence, within 1e-3 of the plain MRF; (d) a tiny HiFi-GAN
+   and a tiny multiband MelGAN D and G step on the card against the CPU
+   (`vocoder train card vs cpu`); (e) two steps each of the multiband
+   MelGAN and UnivNet recipes (batch 32 and 64, `seq_len` 8192): ms a step
+   and peak memory;
+19. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
 
 Each serving phase's requests are a main path: the launch counts are set to
 0 just before them and read just after. Phases 5 and 6 take the locked
@@ -306,49 +327,60 @@ def mrf_work(stage, B: int, C: int, T: int, dtype) -> dict:
             "bound_cuda_core_ms": max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3}
 
 
+def check_mrf_shapes(shapes, gen, label: str = "", iters: int = 5) -> list:
+    """K1 against `mrf_stack_reference` at each (dtype, C, T) of `shapes`
+    (B = 1): the planned tile, launches, error, time, plain time and bounds,
+    one `kernel hifigan_mrf {label}...` line each."""
+    import torch
+
+    from tpu_tts_torch.ops import hifigan_mrf
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for dtype, C, T in shapes:
+        x, stage = mrf_stage_inputs(C, T, dtype, gen)
+        pl = hifigan_mrf.plan(1, C, T, n_sm)
+        before = hifigan_mrf.launches
+        got = hifigan_mrf.mrf_stack(x, stage)
+        n_launch = hifigan_mrf.launches - before
+        ref = hifigan_mrf.mrf_stack_reference(x, stage)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        tol = F32_TOL if dtype == torch.float32 else BF16_REL_TOL * scale
+        ok = bool(torch.isfinite(got).all()) and err <= tol
+        ms = cuda_ms(lambda: hifigan_mrf.mrf_stack(x, stage), iters)
+        plain_ms = cuda_ms(lambda: hifigan_mrf.mrf_stack_reference(x, stage), iters)
+        work = mrf_work(stage, 1, C, T, dtype)
+        row = {"dtype": str(dtype).replace("torch.", ""), "C": C, "T": T, "max_abs_err": err, "tol": tol,
+               "max_abs_ref": scale, "tile": list(pl.shape), "grid": list(pl.grid), "launches": n_launch,
+               "ms": ms, "plain_ms": plain_ms, **work}
+        rows.append(row)
+        log(f"kernel hifigan_mrf {label}{row['dtype']} C={C} T={T}: tile={pl.shape[0]}x{pl.shape[1]} "
+            f"grid={pl.grid} launches={n_launch} max_abs_err={err:.3e} (tol {tol:.3e}) "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={work['bound_ms']:.4f} ({work['bound_by']}) "
+            f"bound_cuda_core_ms={work['bound_cuda_core_ms']:.4f}")
+        if n_launch != hifigan_mrf.launches_per_stage(stage):
+            raise AssertionError(f"hifigan_mrf took {n_launch} launches for one stage")
+        if not ok:
+            raise AssertionError(f"hifigan_mrf disagrees with its plain version at {row['dtype']} C={C}: {err} > {tol}")
+    return rows
+
+
 def check_mrf_kernel() -> tuple:
     """K1's tensor-core instructions, then K1 against `mrf_stack_reference`
     at the four VITS stage shapes: (rows, sass counts)."""
     import torch
 
-    from tpu_tts_torch.ops import build, hifigan_mrf
+    from tpu_tts_torch.ops import build
 
     sass = build.sass_counts("hifigan_mrf")
     log(f"kernel hifigan_mrf sass: {json.dumps(sass)}")
     if sass["HMMA.TF32"] + sass["HGMMA.TF32"] == 0:
         raise AssertionError(f"hifigan_mrf holds no TF32 tensor-core instruction: {sass}")
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for C, up in ((256, 8), (128, 64), (64, 128), (32, 256)):
-            T = MEL_FRAMES * up
-            x, stage = mrf_stage_inputs(C, T, dtype, gen)
-            pl = hifigan_mrf.plan(1, C, T, n_sm)
-            before = hifigan_mrf.launches
-            got = hifigan_mrf.mrf_stack(x, stage)
-            n_launch = hifigan_mrf.launches - before
-            ref = hifigan_mrf.mrf_stack_reference(x, stage)
-            torch.cuda.synchronize()
-            err = float((got.float() - ref.float()).abs().max())
-            scale = float(ref.float().abs().max())
-            tol = F32_TOL if dtype == torch.float32 else BF16_REL_TOL * scale
-            ok = bool(torch.isfinite(got).all()) and err <= tol
-            ms = cuda_ms(lambda: hifigan_mrf.mrf_stack(x, stage), 5)
-            plain_ms = cuda_ms(lambda: hifigan_mrf.mrf_stack_reference(x, stage), 5)
-            work = mrf_work(stage, 1, C, T, dtype)
-            row = {"dtype": str(dtype).replace("torch.", ""), "C": C, "T": T, "max_abs_err": err, "tol": tol,
-                   "max_abs_ref": scale, "tile": list(pl.shape), "grid": list(pl.grid), "launches": n_launch,
-                   "ms": ms, "plain_ms": plain_ms, **work}
-            rows.append(row)
-            log(f"kernel hifigan_mrf {row['dtype']} C={C} T={T}: tile={pl.shape[0]}x{pl.shape[1]} "
-                f"grid={pl.grid} launches={n_launch} max_abs_err={err:.3e} (tol {tol:.3e}) "
-                f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={work['bound_ms']:.4f} ({work['bound_by']}) "
-                f"bound_cuda_core_ms={work['bound_cuda_core_ms']:.4f}")
-            if n_launch != hifigan_mrf.launches_per_stage(stage):
-                raise AssertionError(f"hifigan_mrf took {n_launch} launches for one stage")
-            if not ok:
-                raise AssertionError(f"hifigan_mrf disagrees with its plain version at {row['dtype']} C={C}: {err} > {tol}")
+    rows = check_mrf_shapes([(dtype, C, MEL_FRAMES * up) for dtype in (torch.float32, torch.bfloat16)
+                             for C, up in ((256, 8), (128, 64), (64, 128), (32, 256))], gen)
     log("kernel hifigan_mrf library_ms: none (no single PyTorch call computes the MRF stack)")
     return rows, sass
 
@@ -598,12 +630,14 @@ def post(url: str, text: str, speaker: str = "", language: str = ""):
                                   headers={"Content-Type": "application/json"})
 
 
-def serve_and_check(paths: dict, kernel, per_sentence: bool = False, check=None, device: str = "cuda") -> int:
+def serve_and_check(paths: dict, kernel, launches_per_sentence=None, check=None, device: str = "cuda",
+                    check_synth=None) -> int:
     """Three /api/tts requests through the port's server, each checked and
     each required to launch `kernel` (a wrapper module with a `launches`
-    count) — once per sentence if `per_sentence`; then `check(model)` and a
-    profile of one request. Returns the kernel's launches in the three
-    requests (the main path)."""
+    count) — exactly `launches_per_sentence` times a sentence if that is
+    given (0 for a path without the kernel), else at least once; then
+    `check(model)`, `check_synth(synth)` and a profile of one request.
+    Returns the kernel's launches in the three requests (the main path)."""
     import numpy as np
     import scipy.io.wavfile
 
@@ -656,7 +690,8 @@ def serve_and_check(paths: dict, kernel, per_sentence: bool = False, check=None,
             if not least <= len(pcm) <= expected or sr != synth.output_sample_rate:
                 raise AssertionError(f"reply of {len(pcm)} samples at {sr} Hz, expected {least}..{expected} at "
                                      f"{synth.output_sample_rate}")
-            if n <= 0 or (per_sentence and n != len(sentences)):
+            want = launches_per_sentence
+            if n <= 0 if want is None else n != want * len(sentences):
                 raise AssertionError(f"request {text!r} of {len(sentences)} sentences launched {name} {n} times")
             log(f"request chars={len(text)} sentences={len(sentences)} frames={frames} samples={len(pcm)} "
                 f"trimmed={expected - len(pcm)} latency_s={latency:.4f} {name}_launches={n}")
@@ -664,6 +699,8 @@ def serve_and_check(paths: dict, kernel, per_sentence: bool = False, check=None,
             json.loads(r.read())
         if check is not None:
             check(model)
+        if check_synth is not None:
+            check_synth(synth)
         profile_request(synth, TEXTS[1])
         return launches
     finally:
@@ -1607,12 +1644,14 @@ class TrainProbe:
         self.steps, self.mas_ms, self.zero_grads, self.cur = [], [], None, None
         self.sr = trainer.model.config.audio.sample_rate
         model = trainer.model
-        names = [{id(p): n for n, p in model.disc.named_parameters()}, {id(p): n for n, p in model.net.named_parameters()}]
+        names = {id(p): n for part in (model.net, getattr(model, "disc", None)) if part is not None
+                 for n, p in part.named_parameters()}
         orig_loss = model.loss_fn
 
         def loss_fn(batch, optimizer_idx, generator=None, draws=None):
             self._mark(f"loss{optimizer_idx}")
-            loss, logs = orig_loss(batch, optimizer_idx, generator=generator, draws=draws)
+            loss, logs = orig_loss(batch, optimizer_idx, generator=generator,
+                                   **({} if draws is None else {"draws": draws}))
             if self.cur is not None:
                 self.cur["logs"].update({f"opt{optimizer_idx}_{k}": v.detach() for k, v in logs.items()})
             return loss, logs
@@ -1622,7 +1661,7 @@ class TrainProbe:
             def step(orig=opt.step, idx=idx, opt=opt):
                 self._mark(f"opt{idx}_start")
                 if len(self.steps) == 1 and self.cur is not None:  # the second step
-                    zero = [names[idx].get(id(p), "?") for p in opt.params
+                    zero = [names.get(id(p), "?") for p in opt.params
                             if p.grad is None or not bool(p.grad.abs().max() > 0)]
                     self.zero_grads = (self.zero_grads or []) + zero
                 applied = orig()
@@ -1633,8 +1672,9 @@ class TrainProbe:
         orig_step = trainer.train_step
 
         def train_step(batch):
+            samples = batch["waveform_lengths"].sum() if "waveform_lengths" in batch else batch["waveform"].numel()
             self.cur = {"events": {}, "logs": {}, "clips": int(batch["waveform"].shape[0]),
-                        "audio_s": float(batch["waveform_lengths"].sum()) / self.sr}
+                        "audio_s": float(samples) / self.sr}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = orig_step(batch)
@@ -3086,6 +3126,358 @@ def cloning_phase(tmp: str, enc: dict, device: str = "cuda") -> dict:
     return {"xtts": xtts, "vits": vits, "phase_wall_s": wall}
 
 
+# ---------------------------------------------------------------- GAN vocoders (M8)
+V2_STAGES = ((64, 8), (32, 64), (16, 128), (8, 256))  # HiFi-GAN V2's stage widths and their upsampling so far
+NARROW_T = 2048  # time steps of K1's check at C = 24 and 48
+HIFIGAN_V2 = {"upsample_factors": [8, 8, 2, 2], "upsample_kernel_sizes": [16, 16, 4, 4],
+              "upsample_initial_channel": 128, "resblock_kernel_sizes": [3, 7, 11],
+              "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]], "resblock_type": "1"}
+VOC_CLIPS = (64, 10)  # training and eval clips of the vocoder recipes, 1–3 s each
+VOC_TRAIN_EPOCHS = 2  # 2 steps an epoch at batch 32; then one more epoch, resumed and uninterrupted
+VOC_RECIPES = {  # recipes/ljspeech/{hifigan,multiband_melgan,univnet}/: their settings (the eval split is 10 clips)
+    "HifiganConfig": dict(batch_size=32, seq_len=8192, pad_short=2000, use_noise_augment=True, lr_gen=1e-4,
+                          lr_disc=1e-4, test_delay_epochs=5),
+    "MultibandMelganConfig": dict(batch_size=32, seq_len=8192, pad_short=2000, use_noise_augment=True, lr_gen=1e-4,
+                                  lr_disc=1e-4, test_delay_epochs=5),
+    "UnivnetConfig": dict(batch_size=64, seq_len=8192, pad_short=2000, use_noise_augment=True, lr_gen=1e-4,
+                          lr_disc=1e-4, test_delay_epochs=-1),
+}
+
+
+def check_mrf_kernel_narrow() -> list:
+    """K1 against `mrf_stack_reference` at HiFi-GAN V2's stage shapes (C =
+    64/32/16/8 at MEL_FRAMES mel frames) in float32 and bfloat16, and at
+    C = 24 and 48 (T = NARROW_T): the planned tile, launches, time, plain
+    time and bound of each (`kernel hifigan_mrf v2|narrow ...` lines)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, shapes in (("v2", [(dtype, C, MEL_FRAMES * up) for C, up in V2_STAGES]),
+                              ("narrow", [(dtype, C, NARROW_T) for C in (24, 48)])):
+            rows += [{"shapes": label, **r} for r in check_mrf_shapes(shapes, gen, f"{label} ", iters=10)]
+    for dtype in ("float32", "bfloat16"):
+        v2 = [r for r in rows if r["shapes"] == "v2" and r["dtype"] == dtype]
+        log(f"kernel hifigan_mrf v2 {dtype} sum: ms={sum(r['ms'] for r in v2):.4f} "
+            f"plain_ms={sum(r['plain_ms'] for r in v2):.4f} bound_ms={sum(r['bound_ms'] for r in v2):.4f} "
+            f"flops={sum(r['flops'] for r in v2):.4e}")
+    return rows
+
+
+def save_gan_vocoder(tmp: str, name: str, config=None, device: str = "cuda") -> dict:
+    """A GAN vocoder (the default config of class `name` unless `config` is
+    given) with weights from SEED, a HiFi-GAN generator at unit gain, saved
+    as a Coqui-format `.pth` (`{"model": ...}` with `model_g.*` and
+    `model_d.*`) beside its `config.json`."""
+    import torch
+
+    from tpu_tts_torch.vocoder import configs
+    from tpu_tts_torch.vocoder.models import setup_model
+
+    torch.manual_seed(SEED)
+    config = getattr(configs, name)() if config is None else config
+    model = setup_model(config, device=device)
+    if config.generator_model == "hifigan_generator":
+        unit_gain_decoder(model.model_g)
+    stem = os.path.join(tmp, name.replace("Config", "").lower())
+    torch.save({"model": model.net.state_dict(), "step": 0}, stem + ".pth")
+    config.save_json(stem + ".json")
+    return {"vocoder_path": stem + ".pth", "vocoder_config_path": stem + ".json",
+            "generator_params": sum(p.numel() for p in model.model_g.parameters())}
+
+
+def check_vocoder_against_plain(synth, tol: float = 1e-3, label: str = "vocoder") -> dict:
+    """The served vocoder's waveform for the TTS model's mel of TEXTS[0],
+    K1 against the plain MRF version (float32, TF32 off)."""
+    import numpy as np
+
+    from tpu_tts_torch.infer.synthesis import synthesis
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.vocoder.models import hifigan_generator
+
+    mel = synthesis(synth.tts_model, TEXTS[0], synth.tts_config)["model_outputs"]
+    got = synth.vocode(mel)
+    hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
+    try:
+        ref = synth.vocode(mel)
+    finally:
+        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
+    out = {"samples": int(got.size), "max_abs_err": float(np.abs(got - ref).max()), "tol": tol,
+           "rms": float(np.sqrt(np.mean(ref**2))), "saturated": float(np.mean(np.abs(ref) > 0.999))}
+    log(f"{label} waveform vs plain MRF " + json.dumps(out))
+    if not np.isfinite(got).all() or out["max_abs_err"] > tol or out["rms"] < 1e-3 or out["saturated"] > 0.5:
+        raise AssertionError(f"the served vocoder disagrees with the plain MRF or is silent/saturated: {out}")
+    return out
+
+
+def serve_gan_vocoders(tmp: str, glow: dict, device: str = "cuda") -> dict:
+    """Glow-TTS (phase 6's) behind a HiFi-GAN V1 (the default `HifiganConfig`:
+    22050 Hz, 80 mels, hop 256), then V2 (`upsample_initial_channel` 128),
+    then the default multiband MelGAN and UnivNet, each over three
+    `/api/tts` requests: 72 K1 launches a sentence for HiFi-GAN, each
+    waveform within 1e-3 of the plain MRF, 0 for the others; latency and
+    profile lines from `serve_and_check`."""
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.vocoder.configs import HifiganConfig
+
+    out = {}
+    for label, name, config, per_sentence in (
+            ("hifigan_v1", "HifiganConfig", None, 72),
+            ("hifigan_v2", "HifiganConfig", HifiganConfig(generator_model_params=dict(HIFIGAN_V2)), 72),
+            ("multiband_melgan", "MultibandMelganConfig", None, 0), ("univnet", "UnivnetConfig", None, 0)):
+        os.makedirs(os.path.join(tmp, label))
+        voc = save_gan_vocoder(os.path.join(tmp, label), name, config, device)
+        paths = {**glow, "vocoder_path": voc["vocoder_path"], "vocoder_config_path": voc["vocoder_config_path"]}
+        log(f"vocoder serve {label}: generator_params={voc['generator_params']}")
+        checked = {}
+        launches = serve_and_check(paths, hifigan_mrf, launches_per_sentence=per_sentence, device=device,
+                                   check_synth=(lambda synth, label=label: checked.update(
+                                       check_vocoder_against_plain(synth, label=f"vocoder {label}")))
+                                   if per_sentence else None)
+        out[label] = {"hifigan_mrf_launches": launches, **checked}
+    return out
+
+
+def gan_train_config(name: str, data_path: str, out: str, epochs: int):
+    """The LJSpeech recipe of vocoder `name` (VOC_RECIPES) in float32, its
+    data our clips."""
+    from tpu_tts_torch.vocoder import configs
+
+    return getattr(configs, name)(eval_batch_size=16, num_loader_workers=4, num_eval_loader_workers=4, run_eval=True,
+                                  epochs=epochs, eval_split_size=VOC_CLIPS[1], print_step=1, print_eval=False,
+                                  save_step=0, mixed_precision=False, data_path=data_path, output_path=out,
+                                  training_seed=SEED + 1, **VOC_RECIPES[name])
+
+
+def gan_fit(config, train, eval_, out: str, device: str = "cuda", label: str = "") -> tuple:
+    """`Trainer.fit` of a GAN vocoder from SEED (a HiFi-GAN generator at unit
+    gain) under `TrainProbe`: ms a step (D, G, updates; CUDA events, the
+    first step left out), peak memory, K1's launches (0 expected), finite
+    losses, every parameter with a nonzero gradient at step 2. Returns (row,
+    trainer, probe)."""
+    import math
+
+    import torch
+
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.train import Trainer, TrainerArgs
+    from tpu_tts_torch.vocoder.models import setup_model
+
+    torch.manual_seed(SEED)
+    model = setup_model(config, device=device)
+    if config.generator_model == "hifigan_generator":
+        unit_gain_decoder(model.model_g)
+    trainer = Trainer(TrainerArgs(device=device), config, out, model=model, train_samples=train, eval_samples=eval_)
+    probe = TrainProbe(trainer)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hifigan_mrf.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit()
+    fit_s = time.perf_counter() - t0
+    steps = list(probe.steps)
+    timed = [probe.step_ms(s) for s in steps[1:]] or [probe.step_ms(steps[0])]
+    row = {"model": config.model, "steps": len(steps), "batch": config.batch_size, "seq_len": config.seq_len,
+           "fit_s": fit_s, **{k: sum(t[k] for t in timed) / len(timed) for k in timed[0]},
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 2**30, "hifigan_mrf_launches": hifigan_mrf.launches,
+           "params_g": sum(p.numel() for p in model.model_g.parameters()),
+           "params_d": sum(p.numel() for p in model.model_d.parameters()),
+           "losses_first": TrainProbe.losses(steps[0]), "losses_last": TrainProbe.losses(steps[-1])}
+    log(f"vocoder train {label}steps " + json.dumps(row))
+    bad = [k for st in steps for k, v in TrainProbe.losses(st).items() if not math.isfinite(v)]
+    if bad or probe.zero_grads is None or probe.zero_grads:
+        raise AssertionError(f"non-finite losses {bad[:5]} or parameters without a gradient "
+                             f"{(probe.zero_grads or ['(none checked)'])[:8]}")
+    if row["hifigan_mrf_launches"] != 0:
+        raise AssertionError(f"vocoder training launched K1 {row['hifigan_mrf_launches']} times; it has no backward")
+    return row, trainer, probe
+
+
+def tiny_gan_configs() -> dict:
+    """The tiny GAN vocoders of the card-vs-CPU steps: a HiFi-GAN (16 → 1
+    channels, the full-width discriminator) and a 4-band MelGAN."""
+    from tpu_tts_torch.config.shared_configs import BaseAudioConfig
+    from tpu_tts_torch.vocoder.configs import HifiganConfig, MultibandMelganConfig
+
+    audio = dict(num_mels=20, fft_size=64, win_length=64, hop_length=16)
+    return {
+        "hifigan": HifiganConfig(audio=BaseAudioConfig(**audio), generator_model_params={
+            **HIFIGAN_V2, "upsample_factors": [2, 2, 2, 2], "upsample_kernel_sizes": [4, 4, 4, 4],
+            "upsample_initial_channel": 16}),
+        "multiband_melgan": MultibandMelganConfig(
+            audio=BaseAudioConfig(**audio), generator_model_params={"upsample_factors": [2, 2], "num_res_blocks": 2},
+            discriminator_model_params={"base_channels": 4, "max_channels": 16, "downsample_factors": [2, 2]},
+            stft_loss_params={"n_ffts": [64, 128, 32], "hop_lengths": [16, 32, 8], "win_lengths": [48, 96, 24]},
+            # the subband STFT term's log magnitudes of near-empty bins make a float32 gradient stray from
+            # float64's by up to 3e-3 of a tensor's max at most tiny settings (1.6e-3 at FFTs of 32/57/17);
+            # at these FFT sizes and 64 frames it strays 1.5e-4 (the CPU's float32 against its float64)
+            subband_stft_loss_params={"n_ffts": [64, 128, 32], "hop_lengths": [16, 32, 8],
+                                      "win_lengths": [48, 96, 24]})}
+
+
+def tiny_gan_batch() -> dict:
+    """Their batch, numpy: 2 rows of 64 mel frames. At 32 frames the float32
+    gradients themselves stray 5.6e-4 of a tensor's max from float64's (the
+    scale discriminators' log-mel and STFT terms on a short waveform); the
+    stray depends on the data, so the card tests use this batch too."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    mel = rng.standard_normal((2, 64, 20)).astype(np.float32)
+    wav = (0.4 * np.sin(2 * np.pi * 0.03 * np.arange(1024))[None] + 0.05 * rng.standard_normal((2, 1024)))
+    return {"mel_input": mel, "waveform": wav.astype(np.float32)[:, :, None]}
+
+
+def check_gan_steps_card_vs_cpu(devices=("cpu", "cuda")) -> dict:
+    """One D and one G step of each `tiny_gan_configs()` on the card against
+    the CPU, the same weights (`randomize_module`) and `tiny_gan_batch()`,
+    float32 with TF32 off: losses within TRAIN_STEP_TOL[0] relative, each
+    gradient within TRAIN_STEP_TOL[1] of its tensor's largest |gradient|
+    (plus 1e-6)."""
+    import torch
+
+    from tpu_tts_torch.vocoder.models import setup_model
+
+    configs, batch = tiny_gan_configs(), tiny_gan_batch()
+    out = {}
+    for label, config in configs.items():
+        models = dict(zip(("cpu", "cuda"), (setup_model(config, device=dev) for dev in devices)))
+        randomize_module(models["cpu"].net, torch.Generator().manual_seed(SEED))
+        models["cuda"].net.load_state_dict(models["cpu"].net.state_dict())
+        worst_loss, worst_grad = 0.0, 0.0
+        for idx in (0, 1):
+            res = {}
+            for dev, m in models.items():
+                m.train(True)
+                loss, logs = m.loss_fn({k: torch.from_numpy(v).to(m.device) for k, v in batch.items()}, idx)
+                loss.backward()
+                part = m.model_d if idx == 0 else m.model_g
+                res[dev] = ({k: float(v.detach()) for k, v in logs.items()},
+                            {n: p.grad.detach().cpu() for n, p in part.named_parameters() if p.grad is not None})
+                m.net.zero_grad(set_to_none=True)
+            (lc, gc), (lg, gg) = res["cpu"], res["cuda"]
+            worst_loss = max([worst_loss] + [abs(lc[k] - lg[k]) / max(1.0, abs(lc[k])) for k in lc])
+            if set(gc) != set(gg) or not gc:
+                raise AssertionError(f"the card and the CPU gave gradients to different parameters ({label}, {idx})")
+            for n in gc:
+                worst_grad = max(worst_grad, (float((gc[n] - gg[n]).abs().max()) - 1e-6) / max(float(gc[n].abs().max()),
+                                                                                            1e-12))
+            out[f"{label}_losses_{idx}"] = {k: [lc[k], lg[k]] for k in ("loss",)}
+        out[label] = {"max_loss_rel_err": worst_loss, "max_grad_err_of_max": worst_grad}
+        if not worst_loss <= TRAIN_STEP_TOL[0] or not worst_grad <= TRAIN_STEP_TOL[1]:
+            raise AssertionError(f"the tiny {label} step on the card disagrees with the CPU: {out}")
+    log("vocoder train card vs cpu " + json.dumps(out))
+    return out
+
+
+def gan_overfit(config, train, device: str = "cuda") -> dict:
+    """OVERFIT_STEPS steps of a fresh HiFi-GAN (SEED, the generator at unit
+    gain) on one batch: the median G loss of the last 10 below the first."""
+    import statistics
+
+    import torch
+
+    from tpu_tts_torch.train import Trainer, TrainerArgs
+    from tpu_tts_torch.vocoder.models import setup_model
+
+    torch.manual_seed(SEED)
+    model = setup_model(config, device=device)
+    unit_gain_decoder(model.model_g)
+    trainer = Trainer(TrainerArgs(device=device), config, config.output_path, model=model, train_samples=train)
+    loader = model.get_data_loader(config, {}, is_eval=False, samples=train, verbose=False)
+    batch = next(iter(loader))
+    g_loss, l1 = [], []
+    for _ in range(OVERFIT_STEPS):
+        logs = trainer.train_step(batch)
+        g_loss.append(float(logs["opt1_loss"]))
+        l1.append(float(logs["opt1_G_l1_spec_loss"]))
+    out = {"steps": len(g_loss), "g_loss": g_loss, "l1_spec_first_last": [l1[0], l1[-1]], "first": g_loss[0],
+           "median_last10": statistics.median(g_loss[-10:])}
+    log("vocoder train overfit " + json.dumps(out))
+    if not out["median_last10"] < out["first"]:
+        raise AssertionError(f"{OVERFIT_STEPS} steps on one batch did not lower the G loss: {out}")
+    del trainer, model
+    return out
+
+
+def gan_vocoder_phase(tmp: str, glow: dict, device: str = "cuda") -> dict:
+    """Phase 19, the GAN vocoders (M8): K1 at every width (a), Glow-TTS →
+    HiFi-GAN V1 and V2, multiband MelGAN and UnivNet over `/api/tts` (b),
+    `train_vocoder`'s path at the LJSpeech HiFi-GAN recipe's settings with a
+    resumed epoch, 20 steps on one batch and the run directory served (c),
+    tiny D and G steps card vs CPU (d), two steps each of the multiband
+    MelGAN and UnivNet recipes (e)."""
+    import torch
+
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.train import Trainer, TrainerArgs
+    from tpu_tts_torch.train.checkpoint import get_last_checkpoint
+    from tpu_tts_torch.vocoder.datasets import load_wav_data
+    from tpu_tts_torch.vocoder.models import setup_model
+
+    t0 = time.perf_counter()
+    narrow = check_mrf_kernel_narrow()
+    served = serve_gan_vocoders(tmp, glow, device)
+    tiny = check_gan_steps_card_vs_cpu()
+    root = os.path.join(tmp, "voc_data")
+    log("vocoder train data " + json.dumps(write_clips(root, SEED + 13, sum(VOC_CLIPS), 0, (1.0, 3.0))))
+    data_path, out = os.path.join(root, "wavs"), os.path.join(tmp, "voc_run")
+    config = gan_train_config("HifiganConfig", data_path, out, VOC_TRAIN_EPOCHS)
+    train, eval_ = load_wav_data(data_path, config.eval_split_size)
+    row, trainer, probe = gan_fit(config, train, eval_, out, device)
+    try:
+        n0 = len(probe.steps)
+        checkpoint = get_last_checkpoint(out)[0]
+        trainer.config.epochs = VOC_TRAIN_EPOCHS + 1
+        trainer.fit()
+        uninterrupted = TrainProbe.losses(probe.steps[n0])
+    finally:
+        probe.close()
+    del trainer
+    model_b = setup_model(gan_train_config("HifiganConfig", data_path, out, VOC_TRAIN_EPOCHS + 1), device=device)
+    trainer_b = Trainer(TrainerArgs(device=device, continue_path=checkpoint), model_b.config,
+                        os.path.join(tmp, "voc_resumed"), model=model_b, train_samples=train, eval_samples=eval_)
+    probe_b = TrainProbe(trainer_b)
+    try:
+        trainer_b.fit()
+    finally:
+        probe_b.close()
+    resumed = TrainProbe.losses(probe_b.steps[0])
+    rel = max(abs(resumed[k] - uninterrupted[k]) / max(1.0, abs(uninterrupted[k])) for k in uninterrupted)
+    log("vocoder train resume " + json.dumps({"checkpoint": os.path.basename(checkpoint), "max_rel_err": rel,
+                                               "tol": RESUME_TOL, "uninterrupted": uninterrupted, "resumed": resumed}))
+    if set(resumed) != set(uninterrupted) or not rel <= RESUME_TOL:
+        raise AssertionError(f"the resumed vocoder run's next step differs from the uninterrupted run's: {rel}")
+    del trainer_b, model_b, probe_b
+    torch.cuda.empty_cache()
+    overfit = gan_overfit(gan_train_config("HifiganConfig", data_path, os.path.join(tmp, "voc_overfit"), 1), train,
+                          device)
+    torch.cuda.empty_cache()
+    run_paths = {**glow, "vocoder_path": get_last_checkpoint(out)[0],
+                 "vocoder_config_path": os.path.join(out, "config.json")}
+    checked = {}
+    run_launches = serve_and_check(run_paths, hifigan_mrf, launches_per_sentence=72, device=device,
+                                   check_synth=lambda synth: checked
+                                   .update(check_vocoder_against_plain(synth, label="vocoder train serve")))
+    subprocess.run(["rm", "-rf", out, os.path.join(tmp, "voc_resumed"), os.path.join(tmp, "voc_overfit")], check=True)
+    recipes = {}
+    for name in ("MultibandMelganConfig", "UnivnetConfig"):
+        r_out = os.path.join(tmp, f"voc_{name}")
+        r_config = gan_train_config(name, data_path, r_out, 2 if name == "UnivnetConfig" else 1)
+        r_row, r_trainer, r_probe = gan_fit(r_config, train, eval_, r_out, device, label=f"{r_config.model} ")
+        r_probe.close()
+        recipes[r_config.model] = r_row
+        del r_trainer
+        subprocess.run(["rm", "-rf", r_out], check=True)
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"vocoder phase wall: {wall:.1f} s")
+    return {"narrow": narrow, "served": served, "tiny": tiny, "train": row, "resume_max_rel_err": rel,
+            "overfit": overfit, "run_served": {"hifigan_mrf_launches": run_launches, **checked}, "recipes": recipes,
+            "phase_wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -3113,7 +3505,7 @@ def main() -> int:
         mrf_launches = serve_and_check(save_model(tmp), hifigan_mrf, check=check_against_plain)
     with tempfile.TemporaryDirectory() as tmp:
         glow_paths = save_glow_wavernn(tmp)
-        k2_launches = serve_and_check(glow_paths, wavernn_sampler, per_sentence=True)
+        k2_launches = serve_and_check(glow_paths, wavernn_sampler, launches_per_sentence=1)
         glow_griffin_lim(glow_paths)
     b8_rows = check_mrf_kernel_batched()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3156,6 +3548,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         encoder = encoder_phase(tmp)
         cloning = cloning_phase(tmp, encoder)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        glow = save_glow_wavernn(tmp)
+        vocoder = gan_vocoder_phase(tmp, {k: glow[k] for k in ("model_path", "config_path")})
 
     f32 = [r for r in rows if r["dtype"] == "float32"]
     served = next(r for r in k2_rows if r["mode"] == "sampled")  # the mode the vocoder serves
@@ -3210,13 +3606,25 @@ def main() -> int:
         "xtts_clone_launches_per_chunk": cloning["xtts"]["launches_per_chunk"],
         "xtts_clone_decoder_max_abs_err": cloning["xtts"]["decoder_max_abs_err_vs_plain"],
         "dvector_speaker_wav_launches": cloning["vits"]["hifigan_mrf_launches"],
+        # Glow-TTS → HiFi-GAN V1 / V2 / the trained run directory: 72 a sentence; multiband MelGAN, UnivNet and
+        # vocoder training: 0; K1 at V2's stage shapes (and C = 24, 48), float32 and bfloat16
+        "vocoder_launches": {k: v["hifigan_mrf_launches"] for k, v in vocoder["served"].items()},
+        "vocoder_max_abs_err": {k: v.get("max_abs_err") for k, v in vocoder["served"].items()},
+        "vocoder_train_launches": vocoder["train"]["hifigan_mrf_launches"],
+        "vocoder_train_serve_launches": vocoder["run_served"]["hifigan_mrf_launches"],
+        "vocoder_train_serve_max_abs_err": vocoder["run_served"]["max_abs_err"],
+        "shapes_v2_narrow": vocoder["narrow"],
+        "v2_f32": {k: sum(r[k] for r in vocoder["narrow"] if r["shapes"] == "v2" and r["dtype"] == "float32")
+                   for k in ("ms", "plain_ms", "bound_ms")},
         "launches_all_phases": (mrf_launches + batched["launches"] + multi["launches"] + yourtts["hifigan_mrf_launches"]
                                 + xtts["launches"] + train["hifigan_mrf_launches"]
                                 + train["served"]["hifigan_mrf_launches"] + xtts_train["hifigan_mrf_launches"]
                                 + xtts_train["served"]["hifigan_mrf_launches"] + multilingual["hifigan_mrf_launches"]
                                 + multilingual["vc"]["hifigan_mrf_launches"] + mixed["hifigan_mrf_launches"]
                                 + mixed["vctk"]["hifigan_mrf_launches"] + mixed["served"]["hifigan_mrf_launches"]
-                                + cloning["xtts"]["hifigan_mrf_launches"] + cloning["vits"]["hifigan_mrf_launches"]),
+                                + cloning["xtts"]["hifigan_mrf_launches"] + cloning["vits"]["hifigan_mrf_launches"]
+                                + sum(v["hifigan_mrf_launches"] for v in vocoder["served"].values())
+                                + vocoder["run_served"]["hifigan_mrf_launches"]),
     }, {
         "name": "wavernn_sampler",
         "route": "cuda",

@@ -96,6 +96,28 @@ def test_mrf_kernel_batched_stage_shapes(C, up, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C,T,B", [(8, 700, 2), (16, 333, 1), (24, 260, 2), (48, 129, 1), (40, 90, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mrf_kernel_channel_tail(C, T, B, dtype):
+    """Widths that are not a multiple of 32 (HiFi-GAN V2's 16 and 8, and 24,
+    40, 48): the weights padded to a whole K step, the padded channels read
+    as zero and never written; float32 within 2e-4, bf16 within 2e-2 of the
+    output's scale; 18 launches a stage."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(C + T)
+    stage = _stage(C, (3, 7, 11), ((1, 3, 5),) * 3, gen, "cuda", dtype)
+    x = torch.randn(B, C, T, generator=gen).cuda().to(dtype)
+    before = hifigan_mrf.launches
+    got = hifigan_mrf.mrf_stack(x, stage)
+    ref = hifigan_mrf.mrf_stack_reference(x, stage)
+    torch.cuda.synchronize()
+    assert hifigan_mrf.launches == before + 18
+    assert got.shape == x.shape and bool(torch.isfinite(got).all())
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= (2e-4 if dtype == torch.float32 else 2e-2 * float(ref.float().abs().max()))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("blocks", [1, 2])
 def test_mrf_kernel_matches_reference_bf16(blocks):
     """bf16: the plain version rounds every conv output to bf16, the kernel
@@ -135,7 +157,7 @@ def test_mrf_plan_matches_the_kernel_layout():
     """The plan's shared memory is the kernel's own, for every tile and type."""
     _need_cuda()
     lib = hifigan_mrf.load_kernel()
-    for bn in hifigan_mrf.BN_CHOICES:
+    for bn in hifigan_mrf.BN_CHOICES + hifigan_mrf.BN_NARROW:
         for bf16 in (False, True):
             assert lib.hifigan_mrf_smem_bytes(bn, int(bf16)) == hifigan_mrf.smem_bytes(bn, bf16)
     assert lib.hifigan_mrf_smem_bytes(48, 0) == 0
@@ -146,7 +168,7 @@ def test_mrf_plan_fills_the_card_within_shared_memory():
     block's shared memory, the tile divides C, and at 256 mel frames (B = 1
     and 2) the grid leaves at most n_sm/32 SMs without a block."""
     n_sm = 132
-    for bn in hifigan_mrf.BN_CHOICES:
+    for bn in hifigan_mrf.BN_CHOICES + hifigan_mrf.BN_NARROW:
         for bf16 in (False, True):
             assert hifigan_mrf.smem_bytes(bn, bf16) <= build.SMEM_LIMIT
     for C, up in ((256, 8), (128, 64), (64, 128), (32, 256)):
@@ -159,7 +181,25 @@ def test_mrf_plan_fills_the_card_within_shared_memory():
                 assert pl.blocks >= n_sm - n_sm // 32
     assert hifigan_mrf.plan(1, 32, 7, n_sm).blocks == 1
     with pytest.raises(ValueError):
-        hifigan_mrf.plan(1, 48, 1000, n_sm)
+        hifigan_mrf.plan(1, 0, 1000, n_sm)
+
+
+@pytest.mark.parametrize("C", [1, 8, 16, 24, 40, 48, 100])
+def test_mrf_plan_takes_any_width(C):
+    """A width that is not a multiple of 32 (HiFi-GAN V2's 16 and 8 at 256
+    mel frames, a ragged T): the tile divides the padded width, the grid
+    covers C with fewer than one tile of columns past it, and V2's 16 and 8
+    take a 16- and an 8-wide tile."""
+    n_sm = 132
+    Cp = hifigan_mrf.padded_channels(C)
+    assert Cp % hifigan_mrf.BK == 0 and 0 <= Cp - C < hifigan_mrf.BK
+    for T in (256 * 128, 1000, 7):
+        pl = hifigan_mrf.plan(2, C, T, n_sm)
+        BM, BN = pl.shape
+        assert Cp % BN == 0 and pl.grid == (math.ceil(T / BM), math.ceil(C / BN), 2)
+        assert pl.grid[1] * BN - C < BN
+    assert hifigan_mrf.plan(1, 16, 256 * 128, n_sm).bn == 16
+    assert hifigan_mrf.plan(1, 8, 256 * 256, n_sm).bn == 8
 
 
 def test_mrf_plan_at_batch_16():
@@ -543,6 +583,47 @@ def test_train_step_on_card_matches_cpu(optimizer_idx):
         mod = m.disc if optimizer_idx == 0 else m.net
         results.append(({k: float(v) for k, v in logs.items()},
                         {n: p.grad.cpu() for n, p in mod.named_parameters() if p.grad is not None}))
+    (lc, gc), (lg, gg) = results
+    for k in lc:
+        assert abs(lc[k] - lg[k]) <= 1e-4 * max(1.0, abs(lc[k])), k
+    assert set(gc) == set(gg) and gc
+    for n in gc:
+        assert float((gc[n] - gg[n]).abs().max()) <= 1e-3 * float(gc[n].abs().max()) + 1e-6, n
+
+
+def _tiny_gan_pair(kind):
+    """`chip_smoke`'s tiny GAN vocoder `kind` on the CPU and on the card with
+    the same seeded weights, and its batch (`tiny_gan_batch`: the float32
+    gradients of these tiny STFT and log-mel losses stray from float64's by
+    up to 3e-3 of a tensor's max on some data, and little on this batch)."""
+    import chip_smoke
+    from tpu_tts_torch.vocoder.models import setup_model
+
+    config = chip_smoke.tiny_gan_configs()[kind]
+    cpu, card = (setup_model(config, device=d) for d in ("cpu", "cuda"))
+    chip_smoke.randomize_module(cpu.net, torch.Generator().manual_seed(chip_smoke.SEED))
+    card.net.load_state_dict(cpu.net.state_dict(), strict=True)
+    return cpu, card, {k: torch.from_numpy(v) for k, v in chip_smoke.tiny_gan_batch().items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hifigan", "multiband_melgan"])
+@pytest.mark.parametrize("optimizer_idx", [0, 1])
+def test_gan_vocoder_step_on_card_matches_cpu(kind, optimizer_idx):
+    """One D step (0) or G step (1) of a tiny GAN vocoder on the card against
+    the CPU: losses within 1e-4 relative, each gradient within 1e-3 of its
+    tensor's largest |gradient| plus 1e-6 (float32, TF32 off)."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, card, batch = _tiny_gan_pair(kind)
+    results = []
+    for m in (cpu, card):
+        m.train(True)
+        loss, logs = m.loss_fn({k: v.to(m.device) for k, v in batch.items()}, optimizer_idx)
+        loss.backward()
+        part = m.model_d if optimizer_idx == 0 else m.model_g
+        results.append(({k: float(v.detach()) for k, v in logs.items()},
+                        {n: p.grad.cpu() for n, p in part.named_parameters() if p.grad is not None}))
     (lc, gc), (lg, gg) = results
     for k in lc:
         assert abs(lc[k] - lg[k]) <= 1e-4 * max(1.0, abs(lc[k])), k

@@ -131,7 +131,14 @@ def test_port_imports_neither_jax_nor_tpu_tts():
                             "tpu_tts_torch.encoder.models", "tpu_tts_torch.encoder.losses",
                             "tpu_tts_torch.encoder.dataset", "tpu_tts_torch.encoder.encoder_convert",
                             "tpu_tts_torch.bin.train_encoder", "tpu_tts_torch.bin.compute_embeddings",
-                            "tpu_tts_torch.bin.eval_encoder")
+                            "tpu_tts_torch.bin.eval_encoder", "tpu_tts_torch.vocoder.configs.gan_configs",
+                            "tpu_tts_torch.vocoder.models.gan", "tpu_tts_torch.vocoder.models.melgan_generator",
+                            "tpu_tts_torch.vocoder.models.melgan_discriminator",
+                            "tpu_tts_torch.vocoder.models.univnet_generator",
+                            "tpu_tts_torch.vocoder.models.univnet_discriminator",
+                            "tpu_tts_torch.vocoder.models.vocoder_convert", "tpu_tts_torch.vocoder.layers.losses",
+                            "tpu_tts_torch.vocoder.layers.pqmf", "tpu_tts_torch.vocoder.datasets",
+                            "tpu_tts_torch.vocoder.datasets.gan_dataset", "tpu_tts_torch.bin.train_vocoder")
                 if m not in sys.modules]  # the serving modules are among those walked
         print(len([m for m in sys.modules if m.startswith("tpu_tts_torch.")]), bad)
         """

@@ -97,19 +97,23 @@ def test_three_tf32_passes_keep_float32_accuracy(passes, bound):
         assert err > 2e-4
 
 
+@pytest.mark.parametrize("C", [32, 24])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_pack_stage_gives_the_kernel_its_layout(dtype):
-    """w*_hi, w*_lo: float32 `[k, C_out, C_in]`, the TF32 split of the
-    working-type weight; for bfloat16 weights hi is exact and lo zero."""
-    C, k = 32, 7
+def test_pack_stage_gives_the_kernel_its_layout(dtype, C):
+    """w*_hi, w*_lo: float32 `[k, Cp, Cp]` (C_out, C_in zero-padded to a
+    whole K step), the TF32 split of the working-type weight; for bfloat16
+    weights hi is exact and lo zero."""
+    k, Cp = 7, hifigan_mrf.padded_channels(C)
     rng = np.random.default_rng(3)
     w = torch.from_numpy(rng.standard_normal((C, C, k)).astype(np.float32))
     b = torch.zeros(C)
     u = hifigan_mrf.pack_stage([[(w, b, 2 * w, b, 3)]], dtype).blocks[0][0]
-    for plain, hi, lo in ((u.w1, u.w1_hi, u.w1_lo), (u.w2, u.w2_hi, u.w2_lo)):
+    for plain, hi_p, lo_p in ((u.w1, u.w1_hi, u.w1_lo), (u.w2, u.w2_hi, u.w2_lo)):
         assert plain.dtype == dtype and plain.shape == (C, C, k)
-        for t in (hi, lo):
-            assert t.dtype == torch.float32 and t.shape == (k, C, C) and t.is_contiguous()
+        for t in (hi_p, lo_p):
+            assert t.dtype == torch.float32 and t.shape == (k, Cp, Cp) and t.is_contiguous()
+            assert not t[:, C:].any() and not t[:, :, C:].any()
+        hi, lo = hi_p[:, :C, :C], lo_p[:, :C, :C]
         want_hi, want_lo = hifigan_mrf.tf32_split(plain.float())
         for j in range(k):
             assert torch.equal(hi[j], want_hi[:, :, j]) and torch.equal(lo[j], want_lo[:, :, j])
@@ -118,3 +122,43 @@ def test_pack_stage_gives_the_kernel_its_layout(dtype):
         else:
             assert float((hi + lo - plain.permute(2, 0, 1)).abs().max()) <= 2.0**-22 * float(plain.abs().max())
     assert (u.k, u.d) == (k, 3)
+
+
+def _padded_emulation(x, stage):
+    """The stack as the kernel computes a width that is not a multiple of 32:
+    x zero-padded to Cp channels, every conv on the packed `[k, Cp, Cp]`
+    TF32 pairs in three passes (the biases read for the first C channels),
+    the output's first C channels kept."""
+    B, C, T = x.shape
+    pad = hifigan_mrf.padded_channels(C) - C
+
+    def conv(h, w_hi, w_lo, b, d):
+        k = w_hi.shape[0]
+        hh, hl = hifigan_mrf.tf32_split(h)
+        wh, wl = w_hi.permute(1, 2, 0), w_lo.permute(1, 2, 0)
+
+        def f(a, ww):
+            return F.conv1d(a, ww, padding=(k // 2) * d, dilation=d)
+
+        return f(hl, wh) + f(hh, wl) + f(hh, wh) + F.pad(b, (0, pad))[None, :, None]
+
+    xp, acc = F.pad(x, (0, 0, 0, pad)), None
+    for units in stage.blocks:
+        h = xp
+        for u in units:
+            t = conv(F.leaky_relu(h, hifigan_mrf.LRELU_SLOPE), u.w1_hi, u.w1_lo, u.b1, u.d)
+            t = t * (torch.arange(t.shape[1]) < C)[None, :, None]  # the kernel stores no channel >= C
+            h = h + conv(F.leaky_relu(t, hifigan_mrf.LRELU_SLOPE), u.w2_hi, u.w2_lo, u.b2, 1)
+        acc = h if acc is None else acc + h
+    return (acc / len(stage.blocks))[:, :C]
+
+
+@pytest.mark.parametrize("C", [8, 16, 24])
+def test_padded_packing_emulates_the_stack(C):
+    """HiFi-GAN V2's narrow widths: the 3×TF32 emulation on the padded
+    packing equals the plain version within 1e-5, and the padded channels
+    never reach the first C."""
+    stage = _stage(C, seed=C)
+    x = torch.from_numpy(np.random.default_rng(C + 1).standard_normal((2, C, 300)).astype(np.float32))
+    ref = hifigan_mrf.mrf_stack_reference(x, stage)
+    assert float((_padded_emulation(x, stage) - ref).abs().max()) <= 1e-5

@@ -143,8 +143,11 @@ def _first_leaf(out):
 @functools.lru_cache(maxsize=None)
 def jax_refs(mixed: bool, encoder_rate: bool = False):
     """`jax.value_and_grad(Vits.loss_fn)` of the D step (0) and the G step
-    (1) in one program, each with the alignment of its forward; and the
-    output dtype of each module of DTYPE_MODULES while it traced."""
+    (1) in one program, the G step with the alignment of its forward (the D
+    step's forward, on the same weights and draws, is the same; returned
+    from the D step it would keep MAS and the flow, which the D loss does
+    not read, in its program); and the output dtype of each module of
+    DTYPE_MODULES while it traced."""
     import flax.linen as nn
 
     jm = jax_model(mixed, encoder_rate)
@@ -168,7 +171,7 @@ def jax_refs(mixed: bool, encoder_rate: bool = False):
             def loss_of(sub, idx=idx, key=key):
                 with nn.intercept_methods(interceptor):
                     loss, logs = jm.loss_fn({**params, key: sub}, batch, jax.random.PRNGKey(0), idx)
-                return loss, (logs, seen["attn"])
+                return loss, (logs, seen["attn"] if idx == 1 else None)
 
             out.append(jax.value_and_grad(loss_of, has_aux=True)(params[key]))
         return out
@@ -254,7 +257,8 @@ def _step_against_jax(optimizer_idx, mixed, encoder_rate, loss_tol, grad_tol):
     jm, pm = models(mixed, encoder_rate)
     _, pb, _, pd = _batch(*((48, 24) if encoder_rate else (24, 24)))
     refs, jax_dtypes = jax_refs(mixed, encoder_rate)
-    (ref_loss, (ref_logs, ref_attn)), ref_grads = refs[optimizer_idx]
+    (ref_loss, (ref_logs, _)), ref_grads = refs[optimizer_idx]
+    ref_attn = refs[1][0][1][1]  # the G step's alignment: the D step's forward is the same
     loss, logs, attn, dtypes = _run_port(pm, pb, pd, optimizer_idx)
     forced = None
     flipped = np.argwhere(attn != ref_attn)

@@ -117,9 +117,11 @@ LAYERS = ("VitsPosteriorEncoder", "ResidualCouplingBlocks", "StochasticDurationP
 def jax_step_refs():
     """`jax.value_and_grad(Vits.loss_fn)` of the D step (0) and the G step (1)
     on `_batch()`, in one program: XLA shares the generator forward both
-    run. Each is (loss, (logs, the outputs of LAYERS), grads); both halves
-    of the params are arguments, since as constants XLA would fold the
-    discriminator into the G step's program."""
+    run. Each is (loss, (logs, the outputs of LAYERS), grads), the outputs
+    of the G step only: returned from the D step too they would keep the
+    posterior, flow and SDP, which the D loss does not read, in its program.
+    Both halves of the params are arguments, since as constants XLA would
+    fold the discriminator into the G step's program."""
     jm = jax_train_model()
     jb, _, draws, _ = _batch()
 
@@ -127,7 +129,7 @@ def jax_step_refs():
         out = []
         for idx, key in ((0, "discriminator"), (1, "generator")):
             def loss_of(sub, idx=idx, key=key):
-                seen, intercept = _capture_jax(LAYERS)
+                seen, intercept = _capture_jax(LAYERS if idx == 1 else ())
                 with intercept:
                     loss, logs = jm.loss_fn({**params, key: sub}, batch, jax.random.PRNGKey(0), idx)
                 return loss, (logs, seen)

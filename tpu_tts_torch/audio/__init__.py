@@ -4,7 +4,6 @@ DSP under it (`numpy_transforms.py`), and the WAV bytes the server sends."""
 import io
 
 import numpy as np
-import scipy.io.wavfile
 
 from tpu_tts_torch.audio.processor import AudioProcessor, StandardScaler
 
@@ -15,6 +14,8 @@ def wav_to_pcm16(wav: np.ndarray) -> np.ndarray:
 
 
 def wav_bytes(wav: np.ndarray, sample_rate: int) -> bytes:
+    import scipy.io.wavfile
+
     buf = io.BytesIO()
     scipy.io.wavfile.write(buf, sample_rate, wav_to_pcm16(np.asarray(wav, dtype=np.float32)))
     return buf.getvalue()

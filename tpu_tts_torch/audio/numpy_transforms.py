@@ -16,8 +16,6 @@ from io import BytesIO
 from typing import Optional, Tuple, Union
 
 import numpy as np
-import scipy.io.wavfile
-import scipy.signal
 
 # ---------------------------------------------------------------------------
 # Mel scale (Slaney variant — librosa.filters.mel default)
@@ -150,12 +148,16 @@ def db_to_amp(*, x: np.ndarray = None, gain: float = 1, base: int = 10, **kwargs
 def preemphasis(*, x: np.ndarray, coef: float = 0.97, **kwargs) -> np.ndarray:
     if coef == 0:
         raise RuntimeError(" [!] Preemphasis is set 0.0.")
+    import scipy.signal
+
     return scipy.signal.lfilter([1, -coef], [1], x)
 
 
 def deemphasis(*, x: np.ndarray = None, coef: float = 0.97, **kwargs) -> np.ndarray:
     if coef == 0:
         raise RuntimeError(" [!] Preemphasis is set 0.0.")
+    import scipy.signal
+
     return scipy.signal.lfilter([1], [1, -coef], x)
 
 
@@ -165,6 +167,8 @@ def deemphasis(*, x: np.ndarray = None, coef: float = 0.97, **kwargs) -> np.ndar
 
 def get_window(window: str, win_length: int) -> np.ndarray:
     """Periodic (fftbins) window, as used by librosa/torch."""
+    import scipy.signal
+
     return scipy.signal.get_window(window, win_length, fftbins=True).astype(np.float64)
 
 
@@ -354,12 +358,16 @@ def resample_wav(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     if orig_sr == target_sr:
         return x
     g = np.gcd(int(orig_sr), int(target_sr))
+    import scipy.signal
+
     return scipy.signal.resample_poly(x, target_sr // g, orig_sr // g).astype(np.float32)
 
 
 def load_wav(*, filename: str, sample_rate: int = None, resample: bool = False, **kwargs) -> np.ndarray:
     """Read a wav file to float32 in [-1, 1]; optional polyphase resampling
     (Coqui `numpy_transforms.py`:407 uses soundfile/librosa)."""
+    import scipy.io.wavfile
+
     sr, data = scipy.io.wavfile.read(filename)
     if data.dtype == np.int16:
         x = data.astype(np.float32) / 32768.0
@@ -380,6 +388,8 @@ def save_wav(*, wav: np.ndarray, path: str, sample_rate: int = None, pipe_out=No
     """Save float waveform as 16-bit PCM (Coqui `numpy_transforms.py`:428); with
     `pipe_out` (a text stream such as `sys.stdout`) the WAV bytes also go to its
     binary buffer."""
+    import scipy.io.wavfile
+
     wav_norm = wav * (32767 / max(0.01, np.max(np.abs(wav))))
     wav_norm = wav_norm.astype(np.int16)
     if pipe_out:

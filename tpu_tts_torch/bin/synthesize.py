@@ -23,9 +23,11 @@ Examples:
   # local model
   python -m tpu_tts_torch.bin.synthesize --text "Hello." --model_path model.pth --config_path config.json \\
       --out_path out.wav
-  # with an external vocoder
+  # with an external vocoder (WaveRNN, or a GAN vocoder: HiFi-GAN, MelGAN, multiband MelGAN, UnivNet)
   python -m tpu_tts_torch.bin.synthesize --text "Hello." --model_path glow.pth --config_path glow.json \\
       --vocoder_path wavernn.pth --vocoder_config_path wavernn.json --out_path out.wav
+  python -m tpu_tts_torch.bin.synthesize --text "Hello." --model_path glow.pth --config_path glow.json \\
+      --vocoder_path hifigan.pth --vocoder_config_path hifigan.json --out_path out.wav
   # a multi-speaker, multilingual model: pick a speaker and a language by name
   python -m tpu_tts_torch.bin.synthesize --text "Bonjour." --model_path model.pth --config_path config.json \\
       --speaker_idx spk_b --language_idx fr --out_path out.wav

@@ -43,7 +43,20 @@
 // into registers two K steps ahead (lrelu, mask and split on the way) and
 // run wgmma.m64nBNk8 TF32 with the activations as the register operand and
 // the weight tile as the shared-memory operand. `plan` picks BN per stage
-// shape. Splitting a unit into two launches costs one write and one read of
+// shape.
+//
+// Any channel width C: the packed weights are zero-padded to Cp =
+// 32·⌈C / 32⌉ on both channel axes, so every TMA box stays 32 floats wide
+// and the K loop walks Cp / 32 chunks a tap. The activation loads read zero
+// for input channels ≥ C (x and mid stay [B, C, T]), the epilogue skips
+// output channels ≥ C, and the grid covers ⌈C / BN⌉ output tiles. BN is 8,
+// 16, 32 or 64 (wgmma takes N in steps of 8), so a narrow stage (HiFi-GAN
+// V2's 16 and 8) runs a narrow tile rather than 32 or 64 mostly idle
+// columns; its K steps still carry the padded input channels. The masks
+// are compiled in only for such widths (the TAIL instances): a width that is
+// a multiple of 32 runs PR 5's loads and epilogue as they were.
+//
+// Splitting a unit into two launches costs one write and one read of
 // the float32 `mid` per unit (L2-resident at the VITS shapes) and lets both
 // operands stream in K chunks: a fused unit would hold conv 1's output for
 // all C channels in shared memory. What limits it now is each consumer
@@ -145,23 +158,43 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// d[0:4] += a (64 × 8, registers) · b (8 × 8, shared memory, K-major, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d[0:8] += a (64 × 8, registers) · b (8 × 16, shared memory, K-major, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 template <int BN>
 __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], const uint32_t (&a)[4], uint64_t b, int scale_d) {
-  if constexpr (BN == 32) wgmma_n32(d, a, b, scale_d);
+  if constexpr (BN == 8) wgmma_n8(d, a, b, scale_d);
+  else if constexpr (BN == 16) wgmma_n16(d, a, b, scale_d);
+  else if constexpr (BN == 32) wgmma_n32(d, a, b, scale_d);
   else wgmma_n64(d, a, b, scale_d);
 }
 
 struct Args {
   const void* src;     // conv 1: the unit input x (working type); conv 2: mid (float32)
   const void* x;       // the unit input, for the residual (working type)
-  const float* w_hi;   // [k][C_out][C_in], TF32
+  const float* w_hi;   // [k][Cp][Cp] (C_out, C_in zero-padded to Cp), TF32
   const float* w_lo;   // the same layout, TF32 (read by the 3-pass path only)
   const float* bias;   // [C]
   void* mid;           // conv 1's output, float32
   void* h_out;         // mode 0
   float* acc;          // modes 1-3
   void* y;             // modes 3-4
-  int C, T, k, d, conv, mode;
+  int C, Cp, T, k, d, conv, mode;  // Cp: C rounded up to a multiple of 32
   float inv_n;
 };
 
@@ -174,7 +207,7 @@ struct Ring {
   static constexpr size_t kBytes = 1024 + (size_t)kStages * kStageBytes + 2 * 8 * kStages;
 };
 
-template <typename T, int NPASS, int BN>
+template <typename T, int NPASS, int BN, bool TAIL>
 __global__ void __launch_bounds__(kThreads, 1)
     mrf_conv_kernel(const __grid_constant__ CUtensorMap w_hi, const __grid_constant__ CUtensorMap w_lo,
                     const Args a) {
@@ -183,10 +216,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * R::kStageBytes);
   uint64_t* empty = full + kStages;
-  const int C = a.C, T_len = a.T, pad = (a.k - 1) / 2;
+  const int C = a.C, Cp = a.Cp, T_len = a.T, pad = (a.k - 1) / 2;
   const int t0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
   const size_t base = (size_t)blockIdx.z * C * T_len;
-  const int n_chunks = C / kBK, steps = a.k * n_chunks;
+  const int n_chunks = Cp / kBK, steps = a.k * n_chunks;
   const int wg = __shfl_sync(0xffffffff, (int)threadIdx.x / 128, 0);  // warp-uniform role
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -206,8 +239,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         uint8_t* stage = smem + st * R::kStageBytes;
         const int j = s / n_chunks, ci0 = (s - j * n_chunks) * kBK;
         mbar_expect_tx(&full[st], R::kTx);
-        tma_load_2d(stage, &w_hi, &full[st], ci0, j * C + n0);
-        if (NPASS == 3) tma_load_2d(stage + R::kBBytes, &w_lo, &full[st], ci0, j * C + n0);
+        tma_load_2d(stage, &w_hi, &full[st], ci0, j * Cp + n0);
+        if (NPASS == 3) tma_load_2d(stage + R::kBBytes, &w_lo, &full[st], ci0, j * Cp + n0);
       }
     }
   } else {
@@ -215,7 +248,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
     const int m0 = wg * 64 + warp * 16 + g;  // this thread's fragment rows: m0 and m0 + 8
     const bool first = a.conv == 1;
-    // the activation fragments of K step s, from global memory: lrelu (conv 1), zero outside [0, T)
+    // the activation fragments of K step s, from global memory: lrelu (conv 1), zero outside [0, T) and
+    // on the padded input channels C .. Cp - 1
     auto load = [&](int s, float (&v)[kBK / 8][4]) {
       const int j = s / n_chunks, ci0 = (s - j * n_chunks) * kBK;
       const int t = t0 + m0 + (j - pad) * a.d;
@@ -225,8 +259,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int i = 0; i < 4; ++i) {
           const int tt = t + (i & 1) * 8;  // a0..a3: (row, col) = (g, tig), (g+8, tig), (g, tig+4), (g+8, tig+4)
           const int ci = ci0 + kk * 8 + tig + (i >> 1) * 4;
-          const bool ok = tt >= 0 && tt < T_len;
-          const size_t off = base + (size_t)ci * T_len + (ok ? tt : 0);
+          const bool ok = tt >= 0 && tt < T_len && (!TAIL || ci < C);
+          // without TAIL ci < C always: the address stays in [B, C, T] with tt clamped to 0
+          const size_t off = TAIL ? (ok ? base + (size_t)ci * T_len + tt : base)
+                                  : base + (size_t)ci * T_len + (ok ? tt : 0);
           const float x = first ? lrelu(to_f(static_cast<const T*>(a.src)[off])) : static_cast<const float*>(a.src)[off];
           v[kk][i] = ok ? x : 0.f;
         }
@@ -284,7 +320,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < BN / 2; ++i) {
       const int t = t0 + m0 + ((i >> 1) & 1) * 8;
       const int co = n0 + (i >> 2) * 8 + 2 * tig + (i & 1);
-      if (t >= T_len) continue;
+      if (t >= T_len || (TAIL && co >= C)) continue;
       const size_t off = base + (size_t)co * T_len + t;
       const float r = acc[i] + a.bias[co];
       if (first) {
@@ -331,38 +367,42 @@ int encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* p, uint64_
   return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }
 
-template <typename T, int NPASS, int BN>
+template <typename T, int NPASS, int BN, bool TAIL>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  if (a.C % BN || a.C % kBK) return (int)cudaErrorInvalidValue;
-  CUtensorMap whi, wlo;  // [k·C_out rows][C_in], boxes of BN rows × 32 floats
-  int err = encode_2d(&whi, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.w_hi, a.C, (uint64_t)a.k * a.C, (uint64_t)a.C * 4,
+  if (a.C < 1 || a.Cp % kBK || a.Cp % BN || a.Cp < a.C || a.Cp - a.C >= kBK) return (int)cudaErrorInvalidValue;
+  CUtensorMap whi, wlo;  // [k·Cp rows][Cp], boxes of BN rows × 32 floats
+  int err = encode_2d(&whi, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.w_hi, a.Cp, (uint64_t)a.k * a.Cp, (uint64_t)a.Cp * 4,
                       kBK, BN, CU_TENSOR_MAP_SWIZZLE_128B);
   if (!err)
-    err = encode_2d(&wlo, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.w_lo, a.C, (uint64_t)a.k * a.C, (uint64_t)a.C * 4,
+    err = encode_2d(&wlo, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.w_lo, a.Cp, (uint64_t)a.k * a.Cp, (uint64_t)a.Cp * 4,
                     kBK, BN, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err) return err;
-  auto kernel = mrf_conv_kernel<T, NPASS, BN>;
+  auto kernel = mrf_conv_kernel<T, NPASS, BN, TAIL>;
   const size_t smem = Ring<NPASS, BN>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3((a.T + kBM - 1) / kBM, a.C / BN, B), kThreads, smem, stream>>>(whi, wlo, a);
+  kernel<<<dim3((a.T + kBM - 1) / kBM, (a.C + BN - 1) / BN, B), kThreads, smem, stream>>>(whi, wlo, a);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int NPASS>
 int launch_bn(int bn, const Args& a, int B, cudaStream_t stream) {
   switch (bn) {
-    case 32: return launch<T, NPASS, 32>(a, B, stream);
-    case 64: return launch<T, NPASS, 64>(a, B, stream);
+    case 8: return launch<T, NPASS, 8, true>(a, B, stream);
+    case 16: return launch<T, NPASS, 16, true>(a, B, stream);
+    case 32: return a.C == a.Cp ? launch<T, NPASS, 32, false>(a, B, stream) : launch<T, NPASS, 32, true>(a, B, stream);
+    case 64: return a.C == a.Cp ? launch<T, NPASS, 64, false>(a, B, stream) : launch<T, NPASS, 64, true>(a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Shared memory of one launch with output tiles 128 × bn (0 if bn is not 32 or 64).
+// Shared memory of one launch with output tiles 128 × bn (0 if bn is not 8, 16, 32 or 64).
 extern "C" size_t hifigan_mrf_smem_bytes(int bn, int is_bf16) {
   switch (bn) {
+    case 8: return is_bf16 ? Ring<1, 8>::kBytes : Ring<3, 8>::kBytes;
+    case 16: return is_bf16 ? Ring<1, 16>::kBytes : Ring<3, 16>::kBytes;
     case 32: return is_bf16 ? Ring<1, 32>::kBytes : Ring<3, 32>::kBytes;
     case 64: return is_bf16 ? Ring<1, 64>::kBytes : Ring<3, 64>::kBytes;
     default: return 0;
@@ -370,17 +410,17 @@ extern "C" size_t hifigan_mrf_smem_bytes(int bn, int is_bf16) {
 }
 
 // One conv of a dilation unit (conv = 1 or 2, see the top of this file) on
-// output tiles of 128 time steps × bn channels (bn 32 or 64, C % bn == 0).
+// output tiles of 128 time steps × bn channels (bn 8, 16, 32 or 64).
 // src: conv 1 the unit input x, conv 2 `mid`; x, h_out, y: [B, C, T] in the
 // working type (float32, or bfloat16 if is_bf16); mid, acc: [B, C, T]
-// float32; w_hi, w_lo: [k][C_out][C_in] float32 rounded to TF32 (w_lo unread
-// for bfloat16); bias: [C] float32. C % 32 == 0, k odd. Returns the CUDA
-// error code of the launch, or 1000 + the CUresult if a tensor map
-// cannot be made.
+// float32; w_hi, w_lo: [k][Cp][Cp] float32 rounded to TF32, C_out and C_in
+// zero-padded to Cp = 32·⌈C / 32⌉ (w_lo unread for bfloat16); bias: [C]
+// float32. Any C ≥ 1, Cp % bn == 0, k odd. Returns the CUDA error code of
+// the launch, or 1000 + the CUresult if a tensor map cannot be made.
 extern "C" int hifigan_mrf_conv(const void* src, const void* x, const void* w_hi, const void* w_lo,
                                 const void* bias, void* mid, void* h_out, void* acc, void* y, int B, int C,
-                                int T_len, int k, int d, int conv, int mode, float inv_n, int bn, int is_bf16,
-                                void* stream) {
+                                int Cp, int T_len, int k, int d, int conv, int mode, float inv_n, int bn,
+                                int is_bf16, void* stream) {
   Args a;
   a.src = src;
   a.x = x;
@@ -392,6 +432,7 @@ extern "C" int hifigan_mrf_conv(const void* src, const void* x, const void* w_hi
   a.acc = static_cast<float*>(acc);
   a.y = y;
   a.C = C;
+  a.Cp = Cp;
   a.T = T_len;
   a.k = k;
   a.d = d;

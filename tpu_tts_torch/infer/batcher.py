@@ -105,8 +105,10 @@ class TTSMicroBatcher:
 
     @classmethod
     def supports(cls, synthesizer) -> bool:
-        """End-to-end batch models only: `inference` returns the waveform of a
-        whole `[B, T]` id batch with per-row length masks."""
+        """End-to-end batch models only (VITS): `inference` returns the
+        waveform of a whole `[B, T]` id batch with per-row length masks. A mel
+        model with a vocoder (WaveRNN or a GAN vocoder) is refused and served
+        on the locked path, as in `tpu_tts`."""
         model = getattr(synthesizer, "tts_model", None)
         cfg = getattr(synthesizer, "tts_config", None)
         return (

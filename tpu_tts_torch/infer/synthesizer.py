@@ -7,7 +7,7 @@ and silence trim :255-256, `_interpolate_mel`:272). Checkpoints are `.pth`
 files of the model's net beside its `config.json`: the port's own
 `state_dict`, or a Coqui-format checkpoint (`BaseTTSModel.load_checkpoint`).
 An end-to-end model (VITS) gives the waveform; a mel model (Glow-TTS) hands
-its mel to the vocoder (WaveRNN) through the audio configs' denormalize →
+its mel to the vocoder (WaveRNN or a GAN vocoder) through the audio configs' denormalize →
 normalize handshake, resampled in time when the two sample rates differ,
 or, with no vocoder loaded, to Griffin-Lim on the host. Each sentence's
 waveform is cut at `ap.find_endpoint` when the TTS audio config sets
@@ -16,7 +16,8 @@ waveform is cut at `ap.find_endpoint` when the TTS audio config sets
 
 Where the port differs from the JAX synthesizer on purpose (ROADMAP.md,
 queue 3): the vocoder's waveform is taken as the 1-D array WaveRNN returns
-(the JAX synthesizer indexes it `[0, :, 0]` and so fails with WaveRNN); and
+(the JAX synthesizer indexes it `[0, :, 0]` and so fails with WaveRNN; a
+GAN vocoder's `[1, T, 1]` is indexed so in both); and
 Griffin-Lim's first phases are drawn from the request's `seed`, so a
 request is repeatable.
 
@@ -190,7 +191,8 @@ class Synthesizer:
         scale_factor = self.vocoder_config.audio["sample_rate"] / self.tts_config.audio["sample_rate"]
         if scale_factor != 1.0:
             vocoder_input = _interpolate_mel(vocoder_input, scale_factor)
-        return self.vocoder_model.inference(vocoder_input.astype(np.float32))
+        wav = self.vocoder_model.inference(vocoder_input.astype(np.float32))
+        return wav[0, :, 0] if wav.ndim == 3 else wav  # a GAN's [1, T, 1], as JAX indexes it; WaveRNN's 1-D
 
     def tts(self, text: str = "", speaker_name: str = "", language_name: str = "", speaker_wav=None,
             style_wav=None, reference_wav=None, reference_speaker_name: str = None, split_sentences: bool = True,

@@ -19,6 +19,7 @@ with float32 tensors by torch's type promotion, which is JAX's: bfloat16
 with float32 gives float32.
 """
 
+import contextlib
 import math
 
 import torch
@@ -83,6 +84,19 @@ def set_compute_dtype(module: nn.Module, dtype) -> None:
             m.compute_dtype = dtype
 
 
+@contextlib.contextmanager
+def frozen(module: nn.Module):
+    """Within: `module`'s parameters take no gradient."""
+    params = [p for p in module.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
 def cast_conv(conv, x: torch.Tensor, w: torch.Tensor, b=None, **kwargs) -> torch.Tensor:
     """`conv(x, w) + b` in `w`'s dtype, `x` and `b` cast to it. In bfloat16
     the conv's output is rounded and the bias added in bfloat16, as in the
@@ -109,17 +123,32 @@ def project(conv: nn.Conv1d, x: torch.Tensor, dtype=None) -> torch.Tensor:
                      dilation=conv.dilation, groups=conv.groups)
 
 
-class WNConv1d(nn.Module):
-    """Weight-normalised conv with (k//2)·d zero padding on both sides. The
-    input is cast to the kernel's dtype, as in the flax module."""
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """`x` reflected by `pad` samples at both ends of its last axis, as
+    `jnp.pad(mode="reflect")`: a pad as long as the axis or longer keeps
+    reflecting (the axis extended with period 2·(T − 1))."""
+    T = x.shape[-1]
+    if pad < T:
+        return F.pad(x, (pad, pad), mode="reflect")
+    i = torch.arange(-pad, T + pad, device=x.device).abs() % max(2 * (T - 1), 1)
+    return x[..., torch.where(i < T, i, 2 * (T - 1) - i)]
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1, dilation: int = 1):
+
+class WNConv1d(nn.Module):
+    """Weight-normalised conv with (k//2)·d padding on both sides, zeros or
+    (`pad_mode="reflect"`, MelGAN's) the reflection of the input; without
+    a bias when `bias` is False. The input is cast to the kernel's dtype, as
+    in the flax module."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1, dilation: int = 1,
+                 bias: bool = True, pad_mode: str = "zeros"):
         super().__init__()
         self.compute_dtype = None
         self.kernel_size = kernel_size
         self.dilation = dilation
+        self.pad_mode = pad_mode
         self.parametrizations = nn.ModuleDict({"weight": WeightNorm((out_channels, in_channels, kernel_size))})
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
         self.parametrizations["weight"].reset_parameters(in_channels * kernel_size)
 
     @property
@@ -129,6 +158,8 @@ class WNConv1d(nn.Module):
     def forward(self, x):
         pad = (self.kernel_size // 2) * self.dilation
         w = self.weight if self.compute_dtype is None else self.weight.to(self.compute_dtype)
+        if self.pad_mode == "reflect" and pad:
+            x, pad = reflect_pad(x, pad), 0
         return cast_conv(F.conv1d, x, w, self.bias, padding=pad, dilation=self.dilation)
 
 

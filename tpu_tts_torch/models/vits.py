@@ -63,7 +63,6 @@ with the target's. Loading a checkpoint that holds `posterior_encoder.*`
 (a trained one) builds the encoder for it.
 """
 
-import contextlib
 import math
 from typing import Dict, Optional
 
@@ -74,7 +73,7 @@ import torch.nn.functional as F
 
 from tpu_tts_torch.audio import AudioProcessor
 from tpu_tts_torch.audio import torch_transforms as tt
-from tpu_tts_torch.layers.common import DurationPredictor, set_compute_dtype
+from tpu_tts_torch.layers.common import DurationPredictor, frozen as _frozen, set_compute_dtype
 from tpu_tts_torch.layers.losses import discriminator_loss, feature_loss, generator_loss, kl_loss
 from tpu_tts_torch.layers.vits import (
     ResidualCouplingBlocks,
@@ -571,15 +570,3 @@ class Vits(BaseTTSModel):
         return Vits(new_config, ap, tokenizer, device=device, speaker_manager=speaker_manager,
                     language_manager=language_manager)
 
-
-@contextlib.contextmanager
-def _frozen(module: nn.Module):
-    """Within: `module`'s parameters take no gradient."""
-    params = [p for p in module.parameters() if p.requires_grad]
-    for p in params:
-        p.requires_grad_(False)
-    try:
-        yield
-    finally:
-        for p in params:
-            p.requires_grad_(True)

@@ -121,16 +121,28 @@ def disc_params_from_flax(tree, periods) -> Dict[str, torch.Tensor]:
     """JAX `VitsDiscriminator` params → the port's `VitsDiscriminator`
     `state_dict`, for its `periods` in order."""
     nets = {"disc_s": "nets.0", **{f"disc_p{p}": f"nets.{i + 1}" for i, p in enumerate(periods)}}
-    flat, sd = _flatten(tree), {}
+
+    def name_of(module: str) -> str:
+        net, conv = module.split("/")
+        return f"{nets[net]}.{conv.replace('convs_', 'convs.')}"
+
+    return norm_convs_from_flax(_flatten(tree), name_of)
+
+
+def norm_convs_from_flax(flat: Dict[str, np.ndarray], name_of) -> Dict[str, torch.Tensor]:
+    """Flattened flax `NormConv` params (a discriminator's) → torch
+    state-dict entries under `name_of(module path)`: weight norm as
+    `(original0, original1)`, spectral norm as the raw `weight`."""
+    sd = {}
     for path, arr in flat.items():
-        net, conv, leaf = path.split("/")
-        name = f"{nets[net]}.{conv.replace('convs_', 'convs.')}"
+        module, leaf = path.rsplit("/", 1)
+        name = name_of(module)
         if leaf == "bias":
             sd[f"{name}.bias"] = arr
         elif leaf == "v":
             axes = tuple(range(arr.ndim - 1))
             perm = (arr.ndim - 1, arr.ndim - 2) + tuple(range(arr.ndim - 2))  # [..k.., in, out] → [out, in, ..k..]
-            g = flat.get(f"{net}/{conv}/g")
+            g = flat.get(f"{module}/g")
             if g is None:  # spectral norm: the raw kernel
                 sd[f"{name}.weight"] = np.ascontiguousarray(np.transpose(arr, perm))
                 continue

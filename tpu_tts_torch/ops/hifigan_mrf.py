@@ -19,6 +19,12 @@ residual and the stage mean), 18 per VITS stage; `plan` picks the output
 tile per stage shape. Each launch is a wgmma kernel: the weights reach
 shared memory by TMA, the activations are the register operand.
 
+Any channel width C ≥ 1: `pack_stage` zero-pads the kernel's TF32 pairs to
+Cp = 32·⌈C / 32⌉ on both channel axes (the plain version's working-type
+weights and the biases stay at C), the kernel reads zero for input channels
+≥ C and writes no output channel ≥ C, and `plan` takes an output tile of
+8, 16, 32 or 64 channels.
+
 Layout: channels-first `[B, C, T]`, the layout of the port's generator.
 `mrf_stack` takes the kernel for a CUDA tensor and the plain version for a
 CPU tensor; nothing else chooses between them. Neither has a backward: the
@@ -37,6 +43,14 @@ import torch
 import torch.nn.functional as F
 
 LRELU_SLOPE = 0.1
+
+# The kernel's output tile is BM time steps × BN output channels; a K step
+# is BK input channels of one tap, and a ring of STAGES weight tiles is kept
+# in shared memory (`Ring` in the CUDA source). The narrow tiles serve
+# widths that are not a multiple of 32.
+BM, BK, STAGES = 128, 32, 4
+BN_CHOICES = (64, 32)
+BN_NARROW = (16, 8)
 
 # kernel launches made by `mrf_stack` on CUDA tensors; read and reset by
 # whoever wants to know that a run went through the kernel
@@ -64,7 +78,8 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 class MrfUnit:
     """One dilation unit. w1, w2: torch layout `[C_out, C_in, k]` in the
     working type (the plain version's); w*_hi, w*_lo: the kernel's TF32 pair,
-    float32 `[k, C_out, C_in]` (lo is zero for bfloat16 weights)."""
+    float32 `[k, Cp, Cp]`, C_out and C_in zero-padded to `padded_channels(C)`
+    (lo is zero for bfloat16 weights)."""
 
     w1: torch.Tensor
     b1: torch.Tensor
@@ -95,8 +110,15 @@ class MrfStage:
         return self.blocks[0][0].w1.shape[0]
 
 
+def padded_channels(C: int) -> int:
+    """The kernel's channel count: C rounded up to a whole K step (BK)."""
+    return -(-C // BK) * BK
+
+
 def _kernel_pair(w: torch.Tensor):
-    hi, lo = tf32_split(w.permute(2, 0, 1))
+    C = w.shape[0]
+    pad = padded_channels(C) - C
+    hi, lo = tf32_split(F.pad(w.float().permute(2, 0, 1), (0, pad, 0, pad)))
     return hi.contiguous(), lo.contiguous()
 
 
@@ -160,11 +182,6 @@ def mrf_stack(x: torch.Tensor, stage: MrfStage) -> torch.Tensor:
     return _mrf_stack_cuda(x, stage)
 
 
-# The kernel's output tile is BM time steps × BN output channels; a K step
-# is BK input channels of one tap, and a ring of STAGES weight tiles is kept
-# in shared memory (`Ring` in the CUDA source).
-BM, BK, STAGES = 128, 32, 4
-BN_CHOICES = (64, 32)
 
 
 def smem_bytes(bn: int, bf16: bool) -> int:
@@ -198,17 +215,20 @@ def plan(B: int, C: int, T: int, n_sm: int) -> Plan:
     """The output tile of every launch of a stage. One block runs on an SM at
     a time, so an SM is busy for about ⌈blocks / n_sm⌉ × BM·BN; the plan takes
     the BN that makes that least, and of equal ones the wider (fewer re-reads
-    of the activations)."""
+    of the activations). A width that is a multiple of 32 takes 64 or 32; any
+    other also 16 or 8, and its last tile may hold channels past C."""
+    if C < 1:
+        raise ValueError(f"MRF kernel needs C >= 1, got C={C}")
+    Cp = padded_channels(C)
+    choices = BN_CHOICES if C % BK == 0 else BN_CHOICES + BN_NARROW
     best = None
-    for bn in BN_CHOICES:
-        if C % bn:
+    for bn in choices:
+        if Cp % bn:
             continue
-        grid = (math.ceil(T / BM), C // bn, B)
+        grid = (math.ceil(T / BM), math.ceil(C / bn), B)
         key = (math.ceil(grid[0] * grid[1] * grid[2] / n_sm) * bn, -bn)
         if best is None or key < best[0]:
             best = (key, Plan(bn, grid))
-    if best is None:
-        raise ValueError(f"MRF kernel needs C % 32 == 0, got C={C}")
     return best[1]
 
 
@@ -228,7 +248,7 @@ def load_kernel():
 
                 lib = load("hifigan_mrf")
                 p, i = ctypes.c_void_p, ctypes.c_int
-                lib.hifigan_mrf_conv.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, i, i, p]
+                lib.hifigan_mrf_conv.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float, i, i, p]
                 lib.hifigan_mrf_conv.restype = ctypes.c_int
                 lib.hifigan_mrf_smem_bytes.argtypes = [i, i]
                 lib.hifigan_mrf_smem_bytes.restype = ctypes.c_size_t
@@ -242,15 +262,14 @@ def _check(stage: MrfStage, x: torch.Tensor):
         raise ValueError(f"x must be [B, {C}, T], got {tuple(x.shape)}")
     if stage.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"MRF kernel takes float32 or bfloat16 weights, got {stage.dtype}")
-    if C % 32:
-        raise ValueError(f"MRF kernel needs C % 32 == 0, got C={C}")
+    Cp = padded_channels(C)
     for units in stage.blocks:
         for u in units:
             if u.k % 2 == 0:
                 raise ValueError(f"MRF kernel needs odd kernel sizes, got k={u.k}")
             want = [((C, C, u.k), stage.dtype, u.w1), ((C, C, u.k), stage.dtype, u.w2),
                     ((C,), torch.float32, u.b1), ((C,), torch.float32, u.b2)]
-            want += [((u.k, C, C), torch.float32, t) for t in (u.w1_hi, u.w1_lo, u.w2_hi, u.w2_lo)]
+            want += [((u.k, Cp, Cp), torch.float32, t) for t in (u.w1_hi, u.w1_lo, u.w2_hi, u.w2_lo)]
             for shape, dt, t in want:
                 if t.device != x.device or tuple(t.shape) != shape or t.dtype != dt or not t.is_contiguous():
                     raise ValueError("MRF weights must be packed by pack_stage on the input's device")
@@ -285,8 +304,8 @@ def _mrf_stack_cuda(x: torch.Tensor, stage: MrfStage) -> torch.Tensor:
             for conv, src, w_hi, w_lo, bias, d in ((1, cur, u.w1_hi, u.w1_lo, u.b1, u.d),
                                                    (2, mid, u.w2_hi, u.w2_lo, u.b2, 1)):
                 err = lib.hifigan_mrf_conv(ptr(src), ptr(cur), ptr(w_hi), ptr(w_lo), ptr(bias), ptr(mid), ptr(h_out),
-                                           ptr(acc), ptr(y), B, C, T, u.k, d, conv, mode, inv_n, pl.bn, is_bf16,
-                                           stream)
+                                           ptr(acc), ptr(y), B, C, padded_channels(C), T, u.k, d, conv, mode,
+                                           inv_n, pl.bn, is_bf16, stream)
                 if err != 0:
                     raise RuntimeError(f"hifigan_mrf_conv launch failed: error {err}")
                 launches += 1

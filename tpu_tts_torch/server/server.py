@@ -6,7 +6,8 @@ index page (`/`), `/details`, `/api/tts` GET and POST with `speaker_id` and
 POST), `create_server` and `main` with `--max_batch`,
 `--speakers_file_path` and `--list_models`. A model the micro-batcher
 supports (VITS) is served through it, so concurrent `/api/tts` requests
-share one batched inference call; every other model and every request the
+share one batched inference call; every other model (a mel model with its
+vocoder, WaveRNN or a GAN vocoder, among them) and every request the
 batcher does not take run on the locked path, one synthesis at a time, as
 the reference server's global lock. The index page offers the model's
 speakers and languages to choose from, and `/details` lists them.

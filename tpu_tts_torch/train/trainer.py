@@ -27,8 +27,8 @@ optimizer state and losses stay float32.
 The dashboard logger (JAX's `:200-210`): with `dashboard_logger ==
 "tensorboard"` and `tensorboardX` installed, a `SummaryWriter` under
 `<output_path>/logs` gets every step's `train/<k>` scalars and each eval's
-`eval/loss`, and is flushed at the end of each epoch; without the package,
-nothing is logged.
+`eval/loss`, is flushed at the end of each epoch and closed (every queued
+event written) when `fit` returns; without the package, nothing is logged.
 
 Not ported, by design or not yet (ROADMAP.md): the mesh and its shardings,
 multi-process data parallelism (M10), the fused single-program step, buffer
@@ -176,9 +176,16 @@ class Trainer:
             if getattr(self.config, "save_on_interrupt", True):
                 self.save_checkpoint()
             raise
+        finally:
+            if self.dashboard_logger is not None:
+                # `flush` writes what the writer's queue has handed over; `close` waits for the rest
+                self.dashboard_logger.close()
+                self.dashboard_logger = None
 
     def _fit(self):
         c = self.config
+        if self.dashboard_logger is None:
+            self.dashboard_logger = self._init_dashboard_logger()
         train_loader = self.model.get_data_loader(c, self.assets, is_eval=False, samples=self.train_samples,
                                                   verbose=True)
         eval_loader = None

@@ -1,16 +1,19 @@
-"""HiFi-GAN discriminators of VITS training, channels-first.
+"""HiFi-GAN discriminators of VITS training and of the HiFi-GAN vocoder, channels-first.
 
 Counterpart of `tpu_tts/vocoder/models/hifigan_discriminator.py`
 (`_spectral_normalize`:19, `NormConv`:33, `DiscriminatorP`:76,
-`DiscriminatorS`:114 at `slim=True`, VITS's schedule; the full schedule of
-the HiFi-GAN vocoder's scale discriminators comes with the vocoder GANs,
-ROADMAP M8). Module and
-parameter names are Coqui's (`convs.{i}`, `conv_post`, weight norm as
+`DiscriminatorS`:114 with VITS's `slim` schedule or the vocoder's full one,
+`MultiPeriodDiscriminator`:158, `_avg_pool`:175, `MultiScaleDiscriminator`
+:181, `HifiganDiscriminator`:199). Module and
+parameter names are Coqui's (`convs.{i}`, `conv_post`, `mpd.discriminators.{i}`,
+`msd.discriminators.{i}`, weight norm as
 `parametrizations.weight.original0/1` with g per output channel), so a Coqui
-VITS checkpoint's `disc.*` tensors load by name. Spectral norm is the JAX
+VITS checkpoint's `disc.*` tensors and a Coqui HiFi-GAN's `model_d.*` load by
+name. Spectral norm (the vocoder's first scale discriminator) is the JAX
 package's stateless kind: three power iterations from a uniform vector on
-every call, on a plain `weight`; a Coqui spectral-norm checkpoint
-(`weight_orig`, `weight_u`, `weight_v`) does not load.
+every call, on a plain `weight`; the vocoder's loader reads a Coqui
+checkpoint's `parametrizations.weight.original` as that weight
+(`vocoder/models/vocoder_convert.py`), as the JAX converter does.
 
 Mixed precision (`tpu_tts/vocoder/models/hifigan_discriminator.py`:42-73):
 with a bfloat16 `compute_dtype` (`layers.common.set_compute_dtype`) each
@@ -107,17 +110,21 @@ class DiscriminatorP(nn.Module):
 # (out channels, kernel, stride, groups, padding) of each conv of VITS's scale discriminator
 _SLIM = [(16, 15, 1, 1, 7), (64, 41, 4, 4, 20), (256, 41, 4, 16, 20), (1024, 41, 4, 64, 20),
          (1024, 41, 4, 256, 20), (1024, 5, 1, 1, 2)]
+# and of the HiFi-GAN vocoder's
+_FULL = [(128, 15, 1, 1, 7), (128, 41, 2, 4, 20), (256, 41, 2, 16, 20), (512, 41, 4, 16, 20),
+         (1024, 41, 4, 16, 20), (1024, 41, 1, 16, 20), (1024, 5, 1, 1, 2)]
 
 
 class DiscriminatorS(nn.Module):
-    """VITS's scale discriminator: a stack of grouped 1-D convs. x `[B, 1, T]`
-    → (score `[B, N]`, features)."""
+    """A scale discriminator: a stack of grouped 1-D convs, VITS's schedule
+    (`slim`) or the HiFi-GAN vocoder's. x `[B, 1, T]` → (score `[B, N]`,
+    features)."""
 
-    def __init__(self, use_spectral_norm: bool = False):
+    def __init__(self, use_spectral_norm: bool = False, slim: bool = True):
         super().__init__()
         self.convs = nn.ModuleList()
         c_in = 1
-        for c_out, k, s, g, p in _SLIM:
+        for c_out, k, s, g, p in _SLIM if slim else _FULL:
             self.convs.append(NormConv(c_in, c_out, (k,), (s,), (p,), groups=g, use_spectral_norm=use_spectral_norm))
             c_in = c_out
         self.conv_post = NormConv(c_in, 1, (3,), (1,), (1,), use_spectral_norm=use_spectral_norm)
@@ -130,3 +137,59 @@ class DiscriminatorS(nn.Module):
         x = self.conv_post(x)
         feat.append(x)
         return torch.flatten(x, 1), feat
+
+
+class MultiPeriodDiscriminator(nn.Module):
+    """One period discriminator per period (2, 3, 5, 7, 11): (scores, features)."""
+
+    def __init__(self, periods=(2, 3, 5, 7, 11), use_spectral_norm: bool = False):
+        super().__init__()
+        self.discriminators = nn.ModuleList(DiscriminatorP(p, use_spectral_norm=use_spectral_norm) for p in periods)
+
+    def forward(self, x):
+        scores, feats = [], []
+        for disc in self.discriminators:
+            score, feat = disc(x)
+            scores.append(score)
+            feats.append(feat)
+        return scores, feats
+
+
+def avg_pool(x: torch.Tensor, window: int = 4, stride: int = 2) -> torch.Tensor:
+    """The JAX package's `_avg_pool`: a mean over `window` samples every
+    `stride`, two zeros padded on each side and counted."""
+    return F.avg_pool1d(F.pad(x, (2, 2)), window, stride)
+
+
+class MultiScaleDiscriminator(nn.Module):
+    """Three full-schedule scale discriminators, the first spectral-normed,
+    each on the waveform average-pooled once more than the one before."""
+
+    def __init__(self):
+        super().__init__()
+        self.discriminators = nn.ModuleList(DiscriminatorS(use_spectral_norm=i == 0, slim=False) for i in range(3))
+
+    def forward(self, x):
+        scores, feats = [], []
+        for i, disc in enumerate(self.discriminators):
+            score, feat = disc(x)
+            scores.append(score)
+            feats.append(feat)
+            if i < len(self.discriminators) - 1:
+                x = avg_pool(x)
+        return scores, feats
+
+
+class HifiganDiscriminator(nn.Module):
+    """The period discriminators then the scale discriminators: x `[B, 1, T]`
+    → (8 scores, 8 feature lists)."""
+
+    def __init__(self):
+        super().__init__()
+        self.mpd = MultiPeriodDiscriminator()
+        self.msd = MultiScaleDiscriminator()
+
+    def forward(self, x):
+        p_scores, p_feats = self.mpd(x)
+        s_scores, s_feats = self.msd(x)
+        return p_scores + s_scores, p_feats + s_feats

@@ -16,6 +16,13 @@ g is also added after each `ups.{i}`, before the stage's MRF, outside the
 kernel too (`tpu_tts/vocoder/models/hifigan_generator.py`:128-129). As in the flax
 generator, the final leaky relu has slope 0.01.
 
+The vocoder's flags (`:104-108`): `conv_post_bias=False` builds `conv_post`
+without a bias; `inference` edge-pads the mel by `inference_padding` frames
+a side first (`:141-143`). `conv_pre_weight_norm` and
+`conv_post_weight_norm` are taken and, as in the flax module, not read: both
+convs are weight-normalised, and a Coqui checkpoint that stores either as a
+plain `weight` loads through `vocoder/models/vocoder_convert.py`.
+
 Mixed precision (`tpu_tts/vocoder/models/hifigan_generator.py`:33-54,
 112-139): once `layers.common.set_compute_dtype` has given the generator
 bfloat16 (VITS training), `conv_pre`, `cond_layer`, the upsampling,
@@ -107,11 +114,16 @@ class HifiganGenerator(nn.Module):
         upsample_factors: Sequence[int] = (8, 8, 2, 2),
         cond_channels: int = 0,
         cond_in_each_up_layer: bool = False,
+        inference_padding: int = 5,
+        conv_pre_weight_norm: bool = True,
+        conv_post_weight_norm: bool = True,
+        conv_post_bias: bool = True,
     ):
         super().__init__()
         self.compute_dtype = None  # of cond_layer and conds.{i}; the convs hold their own
         self.resblock_type = str(resblock_type)
         resblock_cls = ResBlock1 if self.resblock_type == "1" else ResBlock2
+        self.inference_padding = inference_padding
         self.num_kernels = len(resblock_kernel_sizes)
         self.num_upsamples = len(upsample_factors)
         self.conv_pre = WNConv1d(in_channels, upsample_initial_channel, 7)
@@ -129,7 +141,7 @@ class HifiganGenerator(nn.Module):
                 self.conds.append(nn.Conv1d(cond_channels, ch, 1))
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
                 self.resblocks.append(resblock_cls(ch, rk, tuple(rd)))
-        self.conv_post = WNConv1d(ch, out_channels, 7)
+        self.conv_post = WNConv1d(ch, out_channels, 7, bias=conv_post_bias)
         self._packed: Dict[int, Tuple[tuple, MrfStage]] = {}
 
     def mrf_stage(self, i: int) -> MrfStage:
@@ -162,3 +174,8 @@ class HifiganGenerator(nn.Module):
                 o = sum(rb(o) for rb in blocks) / self.num_kernels
         # slope 0.01 here, as in the flax generator (torch's default)
         return torch.tanh(self.conv_post(F.leaky_relu(o.float(), 0.01)))
+
+    def inference(self, c, g=None):
+        """`forward` on the mel edge-padded by `inference_padding` frames a side."""
+        p = self.inference_padding
+        return self(F.pad(c, (p, p), mode="replicate"), g)
