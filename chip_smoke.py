@@ -181,7 +181,19 @@ result line:
    (`vocoder train card vs cpu`); (e) two steps each of the multiband
    MelGAN and UnivNet recipes (batch 32 and 64, `seq_len` 8192): ms a step
    and peak memory;
-19. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
+19. DelightfulTTS (its serving path): the default `DelightfulTTSConfig`
+   (512-wide 6 + 6-layer conformers, 100 mels, HiFi-GAN 512 → 32) with
+   weights from a seed, its parameter count printed, saved as a state dict
+   and `config.json` and served by `/api/tts` on the locked path (the
+   batcher does not take it): the three requests, 72 K1 launches a
+   sentence, replies of n_frames · hop samples, a profile of the
+   78-character request, each served waveform within 1e-3 of the plain
+   MRF (`delightful waveform vs plain MRF` lines); K1 against its plain
+   version at the stage shapes of that request's mel bucket (`kernel
+   hifigan_mrf delightful ...` lines); a 4-speaker `use_speaker_embedding`
+   model, one request a speaker through `cond_layer` and K1, two speakers
+   giving other waveforms (`delightful speaker ...` lines);
+20. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
 
 Each serving phase's requests are a main path: the launch counts are set to
 0 just before them and read just after. Phases 5 and 6 take the locked
@@ -192,6 +204,7 @@ non-zero. It imports nothing of JAX or of the JAX package.
 """
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -534,6 +547,20 @@ def check_wavernn_kernel() -> list:
     return rows
 
 
+@contextlib.contextmanager
+def plain_mrf():
+    """Every HiFi-GAN generator runs the plain MRF version
+    (`mrf_stack_reference`) inside the block, and K1 again after it."""
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.vocoder.models import hifigan_generator
+
+    hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
+    try:
+        yield
+    finally:
+        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
+
+
 def unit_gain_decoder(dec):
     """Redraw a random HiFi-GAN generator's convs with unit gain (transposed
     convs over the C_in·k/stride taps that reach an output, resblock convs at
@@ -757,16 +784,10 @@ def check_against_plain(model, tol: float = 1e-3):
     covers four stages of float32 sums taken in another order."""
     import torch
 
-    from tpu_tts_torch.ops import hifigan_mrf
-    from tpu_tts_torch.vocoder.models import hifigan_generator
-
     ids = model.tokenizer.text_to_ids(TEXTS[0])
     got = model.inference(ids)["model_outputs"]
-    hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
-    try:
+    with plain_mrf():
         ref = model.inference(ids)["model_outputs"]
-    finally:
-        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
     err = float((got - ref).abs().max())
     saturated = float((ref.abs() > 0.999).float().mean())
     rms = float(ref.pow(2).mean().sqrt())
@@ -973,16 +994,10 @@ def check_batch_against_plain(model, x, x_lengths, cond=None, label: str = "", t
     plain MRF version (as `check_against_plain`)."""
     import torch
 
-    from tpu_tts_torch.ops import hifigan_mrf
-    from tpu_tts_torch.vocoder.models import hifigan_generator
-
     aux = {"x_lengths": x_lengths, **(cond or {})}
     got = model.inference(x, aux_input=aux)
-    hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
-    try:
+    with plain_mrf():
         ref = model.inference(x, aux_input=aux)
-    finally:
-        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
     y = got["y_lengths"].tolist()
     err = float((got["model_outputs"] - ref["model_outputs"]).abs().max())
     log(f"batched waveform vs plain MRF ({label}): rows={len(x)} tokens={aux['x_lengths'].tolist()} y_lengths={y} "
@@ -1413,8 +1428,6 @@ def xtts_card_checks(model, codes: list) -> dict:
     import torch
 
     from tpu_tts_torch.infer.xtts_pool import XttsStreamPool
-    from tpu_tts_torch.ops import hifigan_mrf
-    from tpu_tts_torch.vocoder.models import hifigan_generator
 
     net, a, dev = model.net, model.args, model.device
     conds = [model.speaker_latents(XTTS_SPEAKERS[i % 2]) for i in range(8)]
@@ -1428,11 +1441,8 @@ def xtts_card_checks(model, codes: list) -> dict:
     out = {}
     for B in (1, 8):
         got = net.decode_latents(lats[:B], spk[:B])
-        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
-        try:
+        with plain_mrf():
             ref = net.decode_latents(lats[:B], spk[:B])
-        finally:
-            hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
         out[f"decoder_b{B}_max_abs_err"] = float((got - ref).abs().max())
         out[f"decoder_b{B}_rms"] = float(ref.pow(2).mean().sqrt())
 
@@ -1860,7 +1870,6 @@ def serve_trained(paths: dict, device: str = "cuda", label: str = "train serve")
 
     from tpu_tts_torch.ops import hifigan_mrf
     from tpu_tts_torch.server.server import TTSHandler, create_server
-    from tpu_tts_torch.vocoder.models import hifigan_generator
 
     args = argparse.Namespace(**paths, device=device, host="127.0.0.1", port=0)
     server = create_server(args)
@@ -1881,11 +1890,8 @@ def serve_trained(paths: dict, device: str = "cuda", label: str = "train serve")
         model = TTSHandler.synthesizer.tts_model
         ids = model.tokenizer.text_to_ids(TEXTS[1])
         got = model.inference(ids)["model_outputs"]
-        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
-        try:
+        with plain_mrf():
             ref = model.inference(ids)["model_outputs"]
-        finally:
-            hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
         out = {"status": status, "sample_rate": sr, "samples": int(pcm.size), "latency_s": latency,
                "hifigan_mrf_launches": launches, "max_abs_err_vs_plain": float((got - ref).abs().max()),
                "rms": float(ref.pow(2).mean().sqrt()), "tol": 1e-3}
@@ -2269,7 +2275,6 @@ def serve_finetuned(run_dir: str, device: str = "cuda") -> dict:
     from tpu_tts_torch.infer.xtts_pool import XttsStreamPool
     from tpu_tts_torch.ops import hifigan_mrf
     from tpu_tts_torch.server.server import TTSHandler, create_server
-    from tpu_tts_torch.vocoder.models import hifigan_generator
 
     server = create_server(argparse.Namespace(model_dir=run_dir, device=device, host="127.0.0.1", port=0,
                                               max_streams=1))
@@ -2302,11 +2307,8 @@ def serve_finetuned(run_dir: str, device: str = "cuda") -> dict:
         _, lats, _ = model.net.generate_latents(cond, text, torch.Generator(device=model.device).manual_seed(SEED), 24,
                                                 0.75, 50, lengths)
         got = model.net.decode_latents(lats, spk)
-        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
-        try:
+        with plain_mrf():
             ref = model.net.decode_latents(lats, spk)
-        finally:
-            hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
         out = {"files": sorted(os.listdir(run_dir)), "tokens": len(streams[XTTS_TEXTS[0]].codes), "chunks": len(plan), "samples": int(reply["pcm"].size),
                "first_chunk_ms": reply["first_s"] * 1e3, "wall_s": reply["wall_s"], "hifigan_mrf_launches": launches,
                "launches_per_chunk": launches // len(plan), "decoder_max_abs_err_vs_plain":
@@ -2585,7 +2587,6 @@ def serve_voice_conversion(checkpoint: str, config_path: str, source_wav: str, d
 
     from tpu_tts_torch.infer.synthesizer import Synthesizer
     from tpu_tts_torch.ops import hifigan_mrf
-    from tpu_tts_torch.vocoder.models import hifigan_generator
 
     synth = Synthesizer(checkpoint, config_path, device=device)
     model, hop = synth.tts_model, synth.tts_config.audio.hop_length
@@ -2598,11 +2599,8 @@ def serve_voice_conversion(checkpoint: str, config_path: str, source_wav: str, d
     latency = time.perf_counter() - t0
     launches = hifigan_mrf.launches
     got = model.voice_conversion(src, ids["spk_a"], ids["spk_c"])
-    hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
-    try:
+    with plain_mrf():
         ref = model.voice_conversion(src, ids["spk_a"], ids["spk_c"])
-    finally:
-        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
     other = model.voice_conversion(src, ids["spk_a"], ids["spk_d"])
     out = {"source_samples": int(src.size), "frames": int(src.size // hop), "samples": int(wav.size),
            "latency_s": latency, "hifigan_mrf_launches": launches, "max_abs_err_vs_plain": float(np.abs(got - ref).max()),
@@ -2990,7 +2988,6 @@ def xtts_clone_serve(paths: dict, clips: list, device: str = "cuda") -> dict:
     from tpu_tts_torch.infer.xtts_pool import XttsStreamPool
     from tpu_tts_torch.ops import hifigan_mrf
     from tpu_tts_torch.server.server import TTSHandler, create_server
-    from tpu_tts_torch.vocoder.models import hifigan_generator
 
     server = create_server(argparse.Namespace(model_dir=paths["model_dir"], device=device, host="127.0.0.1", port=0,
                                               max_streams=8))
@@ -3033,11 +3030,8 @@ def xtts_clone_serve(paths: dict, clips: list, device: str = "cuda") -> dict:
                           generator=torch.Generator(device=device).manual_seed(SEED))
         with torch.no_grad():
             wav_a, wav_b = model.net.decode_latents(lat, spk_a), model.net.decode_latents(lat, spk_b)
-            hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
-            try:
+            with plain_mrf():
                 plain_a = model.net.decode_latents(lat, spk_a)
-            finally:
-                hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
         out = {"tokens": len(streams[text].codes), "chunks": len(plan), "decode_calls": calls,
                "samples": int(reply["pcm"].size), "first_chunk_ms": reply["first_s"] * 1e3, "wall_s": reply["wall_s"],
                "hifigan_mrf_launches": launches, "launches_per_chunk": launches // max(len(plan), 1),
@@ -3193,16 +3187,11 @@ def check_vocoder_against_plain(synth, tol: float = 1e-3, label: str = "vocoder"
     import numpy as np
 
     from tpu_tts_torch.infer.synthesis import synthesis
-    from tpu_tts_torch.ops import hifigan_mrf
-    from tpu_tts_torch.vocoder.models import hifigan_generator
 
     mel = synthesis(synth.tts_model, TEXTS[0], synth.tts_config)["model_outputs"]
     got = synth.vocode(mel)
-    hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
-    try:
+    with plain_mrf():
         ref = synth.vocode(mel)
-    finally:
-        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
     out = {"samples": int(got.size), "max_abs_err": float(np.abs(got - ref).max()), "tol": tol,
            "rms": float(np.sqrt(np.mean(ref**2))), "saturated": float(np.mean(np.abs(ref) > 0.999))}
     log(f"{label} waveform vs plain MRF " + json.dumps(out))
@@ -3478,6 +3467,137 @@ def gan_vocoder_phase(tmp: str, glow: dict, device: str = "cuda") -> dict:
             "phase_wall_s": wall}
 
 
+# ---------------------------------------------------------------- DelightfulTTS through K1
+DELIGHTFUL_SPEAKERS = {"spk_a": 0, "spk_b": 1, "spk_c": 2, "spk_d": 3}
+
+
+def save_delightful(tmp: str, device: str = "cuda", speakers: bool = False) -> dict:
+    """The default `DelightfulTTSConfig` (512-wide 6 + 6-layer conformers, 100
+    mels, HiFi-GAN 512 → 32) with weights from SEED, as a state dict and a
+    `config.json`; with `speakers` a 4-speaker `use_speaker_embedding` model
+    and its `speakers.json`. The decoder is redrawn at unit gain and the
+    duration head's bias set to 1.8, so that a token lasts a few frames;
+    the silence trim is off, so a reply is its sentences' n_frames · hop
+    samples."""
+    import torch
+
+    from tpu_tts_torch.configs import DelightfulTTSConfig
+    from tpu_tts_torch.models.delightful_tts import DelightfulTTS
+
+    top = {}
+    if speakers:
+        speakers_file = os.path.join(tmp, "speakers.json")
+        with open(speakers_file, "w", encoding="utf-8") as f:
+            json.dump(DELIGHTFUL_SPEAKERS, f)
+        top = dict(use_speaker_embedding=True, num_speakers=len(DELIGHTFUL_SPEAKERS), speakers_file=speakers_file)
+    config = DelightfulTTSConfig(text_cleaner="english_cleaners", **top)
+    config.audio.do_trim_silence = False
+    torch.manual_seed(SEED + int(speakers))
+    model = DelightfulTTS.init_from_config(config, device=device)
+    net = model.net
+    unit_gain_decoder(net.waveform_decoder)
+    with torch.no_grad():
+        net.acoustic_model.duration_predictor.linear_layer.bias.fill_(1.8)
+    params = sum(p.numel() for p in net.parameters())
+    name = "delightful_spk" if speakers else "delightful"
+    paths = {"model_path": os.path.join(tmp, f"{name}.pth"), "config_path": os.path.join(tmp, f"{name}.json")}
+    torch.save(net.state_dict(), paths["model_path"])
+    model.config.save_json(paths["config_path"])
+    log(f"delightful model: speakers={len(DELIGHTFUL_SPEAKERS) if speakers else 0} params={params} "
+        f"acoustic_params={sum(p.numel() for p in net.acoustic_model.parameters())} "
+        f"decoder_params={sum(p.numel() for p in net.waveform_decoder.parameters())}")
+    return {**paths, "params": params}
+
+
+def check_delightful_against_plain(synth, texts, speaker: str = "", tol: float = 1e-3) -> float:
+    """Each of `texts` through `Synthesizer.tts` with K1 against the same
+    model with the plain MRF version (float32, TF32 off): the largest
+    difference of a served waveform. Fails on a waveform that is near
+    silent or mostly saturated, where the comparison would show little."""
+    import numpy as np
+
+    worst = 0.0
+    for text in texts:
+        got = np.asarray(synth.tts(text, speaker_name=speaker), dtype=np.float32)
+        with plain_mrf():
+            ref = np.asarray(synth.tts(text, speaker_name=speaker), dtype=np.float32)
+        err = float(np.abs(got - ref).max())
+        rms = float(np.sqrt(np.mean(ref**2)))
+        saturated = float(np.mean(np.abs(ref) > 0.999))
+        log(f"delightful waveform vs plain MRF: chars={len(text)} speaker={speaker or None} samples={got.size} "
+            f"max_abs_err={err:.3e} (tol {tol:.0e}) rms={rms:.4f} saturated={saturated:.4f}")
+        if not np.isfinite(got).all() or err > tol or rms < 1e-3 or saturated > 0.5:
+            raise AssertionError(f"the served DelightfulTTS waveform disagrees with the plain MRF or is silent/"
+                                 f"saturated: max_abs_err {err}, rms {rms}, saturated {saturated}")
+        worst = max(worst, err)
+    return worst
+
+
+def delightful_phase(tmp: str, device: str = "cuda") -> dict:
+    """Phase 19, DelightfulTTS through K1: the default model from a seed over
+    three `/api/tts` requests on the locked path (72 K1 launches a sentence,
+    replies of n_frames · hop samples, a profile of the 78-character
+    request), each served waveform within 1e-3 of the plain MRF; K1 alone at
+    the stage shapes of the 78-character request's mel bucket; then a
+    4-speaker model, one request a speaker through `cond_layer` and K1, two
+    speakers giving other waveforms."""
+    import numpy as np
+    import torch
+
+    from tpu_tts_torch.infer.synthesizer import Synthesizer
+    from tpu_tts_torch.models.delightful_tts import DelightfulTTS
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.ops.helpers import bucket_len
+
+    t0 = time.perf_counter()
+    paths = save_delightful(tmp, device)
+    checked = {}
+
+    def check_synth(synth):
+        # the 78-character request's mel bucket and the decoder's stage shapes
+        n_tokens = len(synth.tts_model.tokenizer.text_to_ids(TEXTS[1]))
+        checked.update(max_abs_err=check_delightful_against_plain(synth, TEXTS),
+                       y_max=bucket_len(n_tokens * DelightfulTTS.FRAMES_PER_TOKEN, 128),
+                       ups=np.cumprod(synth.tts_config.vocoder.upsample_rates_decoder))
+
+    launches = serve_and_check({k: paths[k] for k in ("model_path", "config_path")}, hifigan_mrf,
+                               launches_per_sentence=72, device=device, check_synth=check_synth)
+    y_max = checked["y_max"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    k1 = check_mrf_shapes([(torch.float32, 256 >> i, y_max * int(u)) for i, u in enumerate(checked["ups"])], gen,
+                          label=f"delightful y_max={y_max} ")
+    torch.cuda.empty_cache()
+
+    spk_paths = save_delightful(tmp, device, speakers=True)
+    synth = Synthesizer(spk_paths["model_path"], spk_paths["config_path"], device=device)
+    wavs = {}
+    hifigan_mrf.launches = 0
+    for name in DELIGHTFUL_SPEAKERS:
+        before = hifigan_mrf.launches
+        t1 = time.perf_counter()
+        wavs[name] = np.asarray(synth.tts(TEXTS[0], speaker_name=name), dtype=np.float32)
+        n = hifigan_mrf.launches - before
+        log(f"delightful speaker request: speaker={name} id={synth.resolve_speaker(name)[0]} "
+            f"samples={wavs[name].size} latency_s={time.perf_counter() - t1:.4f} hifigan_mrf_launches={n}")
+        if n != 72:
+            raise AssertionError(f"speaker {name}'s request launched K1 {n} times, not 72")
+    spk_launches = hifigan_mrf.launches
+    a, b = wavs["spk_a"], wavs["spk_b"]
+    spk_diff = float(np.abs(a - b).max()) if a.size == b.size else None
+    spk_err = check_delightful_against_plain(synth, TEXTS[:1], speaker="spk_c")
+    log("delightful speakers " + json.dumps({"launches": spk_launches, "lengths": {k: int(v.size) for k, v in wavs.items()},
+                                             "spk_a_vs_spk_b_max_abs_diff": spk_diff, "max_abs_err_vs_plain": spk_err}))
+    if not (a.size != b.size or spk_diff > 1e-3):
+        raise AssertionError("two speakers gave the same DelightfulTTS waveform")
+    del synth
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"delightful phase wall: {wall:.1f} s")
+    return {"hifigan_mrf_launches": launches, "max_abs_err": checked["max_abs_err"], "params": paths["params"],
+            "shapes": k1, "y_max": y_max, "speaker_launches": spk_launches, "speaker_max_abs_err": spk_err,
+            "phase_wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -3552,6 +3672,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         glow = save_glow_wavernn(tmp)
         vocoder = gan_vocoder_phase(tmp, {k: glow[k] for k in ("model_path", "config_path")})
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        delightful = delightful_phase(tmp)
 
     f32 = [r for r in rows if r["dtype"] == "float32"]
     served = next(r for r in k2_rows if r["mode"] == "sampled")  # the mode the vocoder serves
@@ -3616,6 +3739,14 @@ def main() -> int:
         "shapes_v2_narrow": vocoder["narrow"],
         "v2_f32": {k: sum(r[k] for r in vocoder["narrow"] if r["shapes"] == "v2" and r["dtype"] == "float32")
                    for k in ("ms", "plain_ms", "bound_ms")},
+        # DelightfulTTS over /api/tts (72 a sentence) and its 4-speaker model (72 a request); K1 at the stage
+        # shapes of the 78-character request's mel bucket, float32
+        "delightful_launches": delightful["hifigan_mrf_launches"],
+        "delightful_max_abs_err": delightful["max_abs_err"],
+        "delightful_speaker_launches": delightful["speaker_launches"],
+        "delightful_speaker_max_abs_err": delightful["speaker_max_abs_err"],
+        "shapes_delightful": delightful["shapes"],
+        "delightful_f32": {k: sum(r[k] for r in delightful["shapes"]) for k in ("ms", "plain_ms", "bound_ms")},
         "launches_all_phases": (mrf_launches + batched["launches"] + multi["launches"] + yourtts["hifigan_mrf_launches"]
                                 + xtts["launches"] + train["hifigan_mrf_launches"]
                                 + train["served"]["hifigan_mrf_launches"] + xtts_train["hifigan_mrf_launches"]
@@ -3624,7 +3755,8 @@ def main() -> int:
                                 + mixed["vctk"]["hifigan_mrf_launches"] + mixed["served"]["hifigan_mrf_launches"]
                                 + cloning["xtts"]["hifigan_mrf_launches"] + cloning["vits"]["hifigan_mrf_launches"]
                                 + sum(v["hifigan_mrf_launches"] for v in vocoder["served"].values())
-                                + vocoder["run_served"]["hifigan_mrf_launches"]),
+                                + vocoder["run_served"]["hifigan_mrf_launches"]
+                                + delightful["hifigan_mrf_launches"] + delightful["speaker_launches"]),
     }, {
         "name": "wavernn_sampler",
         "route": "cuda",

@@ -17,6 +17,7 @@ import math
 import pytest
 import torch
 
+from chip_smoke import plain_mrf, unit_gain_decoder
 from tpu_tts_torch.ops import build, hifigan_mrf, wavernn_sampler
 
 torch.set_num_threads(1)
@@ -297,11 +298,8 @@ def test_conditioned_generator_through_k1():
         got = dec(x, g=g)
         launched = hifigan_mrf.launches - before
         other = dec(x, g=g.flip(0))
-        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
-        try:
+        with plain_mrf():
             ref = dec(x, g=g)
-        finally:
-            hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
     torch.cuda.synchronize()
     assert launched == 2 * 18 and got.shape == (2, 1, 800)
     assert float((got - ref).abs().max()) <= 1e-4
@@ -471,8 +469,6 @@ def test_xtts_decoder_through_k1(B, n_latents):
     stages of float32 sums in another order), each row its own speaker."""
     import torch.nn.functional as F
 
-    from tpu_tts_torch.vocoder.models import hifigan_generator
-
     _need_cuda()
     model = _tiny_xtts_on_card()
     gen = torch.Generator().manual_seed(1)
@@ -481,11 +477,8 @@ def test_xtts_decoder_through_k1(B, n_latents):
     before = hifigan_mrf.launches
     got = model.net.decode_latents(lat, spk)
     launched = hifigan_mrf.launches - before
-    hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
-    try:
+    with plain_mrf():
         ref = model.net.decode_latents(lat, spk)
-    finally:
-        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
     torch.cuda.synchronize()
     frames = math.floor(math.floor(n_latents * 4) * 24000 / 22050)
     assert launched == 72 and tuple(got.shape) == (B, frames * 256)
@@ -734,7 +727,6 @@ def test_vits_voice_conversion_through_k1():
     target speaker moves the waveform."""
     from tpu_tts_torch.configs.vits_config import VitsArgs, VitsAudioConfig, VitsConfig
     from tpu_tts_torch.models.vits import Vits
-    from tpu_tts_torch.vocoder.models import hifigan_generator
 
     _need_cuda()
     torch.manual_seed(0)
@@ -749,11 +741,8 @@ def test_vits_voice_conversion_through_k1():
     before = hifigan_mrf.launches
     got = model.voice_conversion(wav, 0, 2)
     launches = hifigan_mrf.launches - before
-    hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
-    try:
+    with plain_mrf():
         ref = model.voice_conversion(wav, 0, 2)
-    finally:
-        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
     assert launches == 72 and got.shape == (40 * 256,)
     assert float(abs(got - ref).max()) <= 1e-3
     assert float(abs(model.voice_conversion(wav, 0, 1) - got).max()) > 1e-5
@@ -789,6 +778,40 @@ def test_mixed_precision_train_step_on_card_matches_cpu(optimizer_idx):
 
 
 @pytest.mark.cuda
+def test_delightful_tts_through_k1():
+    """A DelightfulTTS with a tiny acoustic model, 4 speakers and the default
+    512 → 32 decoder redrawn at unit gain on the card: 72 K1 launches a
+    sentence (every ResBlock1 stage), the waveform within 1e-3 of the plain
+    MRF's, neither near silent nor mostly saturated, n_frames · hop samples;
+    another speaker moves the waveform."""
+    from tpu_tts_torch.configs import DelightfulTTSConfig
+    from tpu_tts_torch.models.delightful_tts import DelightfulTTS
+
+    _need_cuda()
+    torch.manual_seed(0)
+    config = DelightfulTTSConfig(use_speaker_embedding=True, num_speakers=4)
+    ma = config.model_args
+    ma.n_hidden_conformer_encoder = ma.n_hidden_conformer_decoder = ma.n_hidden_variance_adaptor = 32
+    ma.n_layers_conformer_encoder = ma.n_layers_conformer_decoder = 1
+    ma.n_heads_conformer_encoder = ma.n_heads_conformer_decoder = 2
+    ma.bottleneck_size_u_reference_encoder, ma.speaker_embedding_channels = 32, 16
+    model = DelightfulTTS.init_from_config(config, device="cuda")
+    unit_gain_decoder(model.net.waveform_decoder)
+    ids = model.tokenizer.text_to_ids("Be a voice, not an echo.")
+    before = hifigan_mrf.launches
+    got = model.inference(ids, aux_input={"speaker_ids": [1]})
+    launches = hifigan_mrf.launches - before
+    with plain_mrf():
+        ref = model.inference(ids, aux_input={"speaker_ids": [1]})["model_outputs"]
+    wav = got["model_outputs"]
+    assert launches == 72 and wav.shape == (1, int(got["y_lengths"][0]) * 256, 1)
+    assert bool(torch.isfinite(wav).all()) and float((wav - ref).abs().max()) <= 1e-3
+    assert float(ref.pow(2).mean().sqrt()) > 1e-3 and float((ref.abs() > 0.999).float().mean()) <= 0.5
+    other = model.inference(ids, aux_input={"speaker_ids": [2]})["model_outputs"]
+    assert other.shape != wav.shape or float((other - wav).abs().max()) > 1e-5
+
+
+@pytest.mark.cuda
 def test_speaker_encoders_on_card_match_cpu():
     """The LSTM, a narrow "batch" ResNet in eval and the full XTTS-side ResNet
     (64 → 512, frozen batch norms) with seeded weights: the card's embedding
@@ -821,7 +844,6 @@ def test_xtts_cloning_through_k1():
     decoder conditioned on it through K1, 72 launches, within 1e-3 of the
     plain MRF; another wav gives another embedding and waveform."""
     from tpu_tts_torch.models.xtts import XttsNet
-    from tpu_tts_torch.vocoder.models import hifigan_generator
 
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -846,10 +868,7 @@ def test_xtts_cloning_through_k1():
     before = hifigan_mrf.launches
     got = model.net.decode_latents(lat, spk)
     launched = hifigan_mrf.launches - before
-    hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack_reference
-    try:
+    with plain_mrf():
         ref = model.net.decode_latents(lat, spk)
-    finally:
-        hifigan_generator.mrf_stack = hifigan_mrf.mrf_stack
     assert launched == 72 and float((got - ref).abs().max()) <= 1e-3
     assert float((model.net.decode_latents(lat, spk_b) - got).abs().max()) > 1e-4

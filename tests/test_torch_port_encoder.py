@@ -30,9 +30,10 @@ import pytest
 import scipy.io.wavfile
 import torch
 
-from tests.torch_port_common import TINY_ARGS, TINY_AUDIO, max_err, seeded
+from tests.torch_port_common import TINY_ARGS, TINY_AUDIO, cached_flax_shape_check, max_err, seeded
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "data", "ljspeech")
 RESNET = dict(input_dim=16, proj_dim=8, layers=(1, 1, 1, 1), num_filters=(8, 8, 16, 16))

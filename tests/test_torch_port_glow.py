@@ -33,11 +33,12 @@ import pytest
 import scipy.io.wavfile
 import torch
 
-from tests.torch_port_common import jax_wavernn, max_err, port_wavernn, randomize
+from tests.torch_port_common import cached_flax_shape_check, jax_wavernn, max_err, port_wavernn, randomize
 from tpu_tts.models.glow_convert import convert_glow_tts_torch_state_dict
 from tpu_tts_torch.models.glow_convert import params_from_flax
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 TINY_GLOW = dict(
     hidden_channels_enc=16,

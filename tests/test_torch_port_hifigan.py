@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import flax_param_shapes, max_err, randomize
+from tests.torch_port_common import flax_param_shapes, cached_flax_shape_check, max_err, randomize
 from tpu_tts.ops.hifigan_pallas import mrf_stack_pallas
 from tpu_tts.vocoder.models.hifigan_generator import HifiganGenerator as FlaxGenerator
 from tpu_tts.vocoder.models.hifigan_generator import ResBlock1 as FlaxResBlock1
@@ -22,6 +22,7 @@ from tpu_tts_torch.ops import hifigan_mrf
 from tpu_tts_torch.vocoder.models.hifigan_generator import HifiganGenerator
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 KS = (3, 7, 11)
 DILS = ((1, 3, 5),) * 3

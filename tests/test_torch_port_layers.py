@@ -16,11 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import jax_model, max_err, port_model
+from tests.torch_port_common import cached_flax_shape_check, jax_model, max_err, port_model
 from tpu_tts.ops.helpers import generate_path as jax_generate_path
 from tpu_tts_torch.ops.helpers import generate_path
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 
 @pytest.fixture(scope="module")
@@ -138,7 +139,9 @@ def test_port_imports_neither_jax_nor_tpu_tts():
                             "tpu_tts_torch.vocoder.models.univnet_discriminator",
                             "tpu_tts_torch.vocoder.models.vocoder_convert", "tpu_tts_torch.vocoder.layers.losses",
                             "tpu_tts_torch.vocoder.layers.pqmf", "tpu_tts_torch.vocoder.datasets",
-                            "tpu_tts_torch.vocoder.datasets.gan_dataset", "tpu_tts_torch.bin.train_vocoder")
+                            "tpu_tts_torch.vocoder.datasets.gan_dataset", "tpu_tts_torch.bin.train_vocoder",
+                            "tpu_tts_torch.configs.delightful_tts_config", "tpu_tts_torch.layers.delightful",
+                            "tpu_tts_torch.models.delightful_tts", "tpu_tts_torch.models.delightful_convert")
                 if m not in sys.modules]  # the serving modules are among those walked
         print(len([m for m in sys.modules if m.startswith("tpu_tts_torch.")]), bad)
         """

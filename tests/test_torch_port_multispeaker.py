@@ -41,9 +41,10 @@ import pytest
 import scipy.io.wavfile
 import torch
 
-from tests.torch_port_common import SEED, TINY_ARGS, TINY_AUDIO, max_err, randomize
+from tests.torch_port_common import SEED, TINY_ARGS, TINY_AUDIO, cached_flax_shape_check, max_err, randomize
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 HOP = 16  # TINY_AUDIO
 WAVE_TOL = 2e-4  # the VITS parity bar of tests/test_torch_port_vits.py

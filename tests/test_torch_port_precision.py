@@ -44,9 +44,10 @@ from tests.test_torch_port_train import (
     _effective_torch_grads,
     patch_jax_draws,
 )
-from tests.torch_port_common import SEED, TINY_ARGS, TINY_AUDIO, max_err, port_config, randomize
+from tests.torch_port_common import SEED, TINY_ARGS, TINY_AUDIO, cached_flax_shape_check, max_err, port_config, randomize
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 # no SDP (its splines cost the JAX trace seconds), one resblock unit
 MP_ARGS = dict(TRAIN_ARGS, use_sdp=False, resblock_dilation_sizes_decoder=[[1]])

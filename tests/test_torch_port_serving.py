@@ -37,9 +37,10 @@ import pytest
 import scipy.io.wavfile
 import torch
 
-from tests.torch_port_common import jax_model, max_err, port_config, port_model
+from tests.torch_port_common import cached_flax_shape_check, jax_model, max_err, port_config, port_model
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 HOP = 16  # TINY_AUDIO
 GAP = 10000

@@ -28,9 +28,10 @@ import pytest
 import torch
 
 from tests.test_torch_port_glow import TINY_GLOW, jax_glow, port_glow_config
-from tests.torch_port_common import TINY_WAVERNN, max_err
+from tests.torch_port_common import TINY_WAVERNN, cached_flax_shape_check, max_err
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 SENTENCES = ["Hello world, this is a test.", "It took me three years to develop a voice!",
              "Dr. Smith thought through the night; the school choir sang."]

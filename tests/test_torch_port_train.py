@@ -35,10 +35,11 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import SEED, TINY_ARGS, TINY_AUDIO, max_err, port_config, randomize
+from tests.torch_port_common import SEED, TINY_ARGS, TINY_AUDIO, cached_flax_shape_check, max_err, port_config, randomize
 from tpu_tts_torch.ops import hifigan_mrf, mas
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 # TINY_ARGS cut where the JAX G step's compile time grows (one text-encoder
 # layer, one WN layer a coupling, one resblock kernel), and no dropout

@@ -21,10 +21,11 @@ import pytest
 import scipy.io.wavfile
 import torch
 
-from tests.torch_port_common import jax_model, max_err, port_config, port_model
+from tests.torch_port_common import cached_flax_shape_check, jax_model, max_err, port_config, port_model
 from tpu_tts.models.vits_convert import convert_vits_torch_state_dict
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 
 @pytest.fixture(scope="module")

@@ -37,9 +37,18 @@ from tests.test_torch_port_train import (
     _effective_torch_grads,
     patch_jax_draws,
 )
-from tests.torch_port_common import SEED, TINY_ARGS, TINY_AUDIO, flax_param_shapes, max_err, randomize
+from tests.torch_port_common import (
+    SEED,
+    TINY_ARGS,
+    TINY_AUDIO,
+    flax_param_shapes,
+    cached_flax_shape_check,
+    max_err,
+    randomize,
+)
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 SPEAKER_ARGS = dict(TRAIN_ARGS, use_speaker_embedding=True, num_speakers=3, speaker_embedding_channels=8,
                     use_language_embedding=True, embedded_language_dim=4, num_languages=2, use_sdp=False)

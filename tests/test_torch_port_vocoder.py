@@ -33,9 +33,10 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import flax_param_shapes, max_err, randomize
+from tests.torch_port_common import flax_param_shapes, cached_flax_shape_check, max_err, randomize
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 MELS = 20
 

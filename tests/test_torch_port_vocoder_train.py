@@ -28,8 +28,10 @@ import torch
 
 from tests.test_torch_port_train import _compare_grads, _effective_jax_tree, _effective_torch_grads
 from tests.test_torch_port_vocoder import MELS, hifigan_pair, multiband_pair
+from tests.torch_port_common import cached_flax_shape_check
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "ljspeech", "wavs")
 
@@ -43,36 +45,14 @@ def _gan_batch(T_mel, seed, hop=16):
     return jb, {k: torch.from_numpy(v) for k, v in jb.items()}
 
 
-def _skip_flax_param_shape_check(mp):
-    """While JAX traces the reference, flax's `Scope.param` returns a given
-    parameter without re-deriving its shape from the initializer (one
-    `jax.eval_shape` a parameter, half of this trace's seconds through the
-    70 M-parameter HiFi-GAN discriminator); a missing one still raises, and a
-    wrong shape still fails in its conv."""
-    import flax.core.scope as scope
-
-    orig = scope.Scope.param
-
-    def param(self, name, init_fn, *args, unbox=True, **kwargs):
-        if not self.has_variable("params", name):
-            return orig(self, name, init_fn, *args, unbox=unbox, **kwargs)
-        self.reserve(name, "params")
-        value = self.get_variable("params", name)
-        return scope.meta.unbox(value) if unbox else value
-
-    mp.setattr(scope.Scope, "param", param)
-
-
 def test_hifigan_gan_losses_match_jax_forward():
     """A tiny HiFi-GAN GAN's D and G loss terms (the full-width HiFi-GAN
     discriminator, the l1 mel, feature-matching and MSE terms) against one
     jitted JAX forward of `GAN.loss_fn` for both sub-steps."""
     jm, pm = hifigan_pair()
     jb, pb = _gan_batch(8, 8)
-    with pytest.MonkeyPatch.context() as mp:
-        _skip_flax_param_shape_check(mp)
-        refs = jax.device_get(jax.jit(lambda p, b: [jm.loss_fn(p, b, jax.random.PRNGKey(0), i) for i in (0, 1)])(
-            jm.params, {k: jnp.asarray(v) for k, v in jb.items()}))
+    refs = jax.device_get(jax.jit(lambda p, b: [jm.loss_fn(p, b, jax.random.PRNGKey(0), i) for i in (0, 1)])(
+        jm.params, {k: jnp.asarray(v) for k, v in jb.items()}))
     pm.train(True)
     with torch.no_grad():
         for idx, (ref_loss, ref_logs) in enumerate(refs):
@@ -141,7 +121,6 @@ def test_multiband_gan_step_matches_jax():
         return out
 
     with jax.enable_x64(), pytest.MonkeyPatch.context() as mp:
-        _skip_flax_param_shape_check(mp)
         mp.setattr(jax_transforms, "_dft_bases", _dft_bases64)
         for module in (jax_transforms, jl):
             mp.setattr(module, "jnp", _Float64Numpy())

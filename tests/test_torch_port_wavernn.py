@@ -22,12 +22,13 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import jax_wavernn, max_err, port_wavernn, port_wavernn_config
+from tests.torch_port_common import cached_flax_shape_check, jax_wavernn, max_err, port_wavernn, port_wavernn_config
 from tpu_tts.ops.wavernn_pallas import PallasWavernnSampler
 from tpu_tts.vocoder.models.vocoder_convert import convert_wavernn_state_dict
 from tpu_tts_torch.ops import wavernn_sampler
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 @pytest.fixture(scope="module")
 def models():

@@ -17,9 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import XTTS_ARGS, jax_xtts, max_err, port_xtts, seeded, speaker_wav
+from tests.torch_port_common import XTTS_ARGS, cached_flax_shape_check, jax_xtts, max_err, port_xtts, seeded, speaker_wav
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 
 @pytest.fixture(scope="module")

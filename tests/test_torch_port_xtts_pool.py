@@ -26,9 +26,10 @@ import pytest
 import scipy.io.wavfile
 import torch
 
-from tests.torch_port_common import max_err, port_xtts, speaker_wav
+from tests.torch_port_common import cached_flax_shape_check, max_err, port_xtts, speaker_wav
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 CHEAP = dict(decoder_upsample_rates=(2, 2), gpt_code_stride=512)
 TOL = 1e-5

@@ -29,9 +29,10 @@ import pytest
 import scipy.io.wavfile
 import torch
 
-from tests.torch_port_common import XTTS_ARGS, jax_xtts, max_err, port_xtts
+from tests.torch_port_common import XTTS_ARGS, cached_flax_shape_check, jax_xtts, max_err, port_xtts
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
 
 DVAE = dict(num_tokens=XTTS_ARGS["gpt_num_audio_tokens"] - 2, codebook_dim=16, hidden_dim=16, num_layers=2,
             num_resnet_blocks=1, channels=80)

@@ -3,10 +3,12 @@ WaveRNN built on both sides, the JAX params drawn from a numpy seed and
 carried into the port through `params_from_flax`."""
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -49,6 +51,92 @@ def randomize(tree, seed: int):
         return (0.1 * rng.standard_normal(shape)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(draw, tree)
+
+
+_INIT_SHAPES = {}
+
+
+def _shape_key(obj, depth: int = 0):
+    """What decides the shapes an initializer gives: plain values as they
+    are, arrays and tracers by shape and dtype, a function by its code, its
+    defaults and what its closure holds, a partial by its parts. Raises
+    TypeError for anything else."""
+    if depth > 8:
+        raise TypeError("too deep")
+    if obj is None or isinstance(obj, (bool, int, float, str, bytes, type, np.dtype)):
+        return obj
+    if isinstance(obj, (list, tuple)):
+        return type(obj).__name__, tuple(_shape_key(x, depth + 1) for x in obj)
+    if isinstance(obj, dict):
+        return "dict", tuple(sorted((k, _shape_key(v, depth + 1)) for k, v in obj.items()))
+    if isinstance(obj, (np.ndarray, jax.Array, jax.core.Tracer, jax.ShapeDtypeStruct)):
+        return "array", tuple(obj.shape), str(obj.dtype)
+    if isinstance(obj, functools.partial):
+        return "partial", _shape_key(obj.func, depth + 1), _shape_key(obj.args, depth + 1), \
+            _shape_key(obj.keywords, depth + 1)
+    if isinstance(obj, types.FunctionType):
+        cells = tuple(_shape_key(c.cell_contents, depth + 1) for c in obj.__closure__ or ())
+        return "function", obj.__code__, _shape_key(obj.__defaults__, depth + 1), \
+            _shape_key(obj.__kwdefaults__, depth + 1), cells
+    if callable(obj):
+        hash(obj)
+        return "callable", obj
+    raise TypeError(type(obj).__name__)
+
+
+def _init_shapes(init_fn, args, kwargs):
+    """The shapes `init_fn(key, *args, **kwargs)` gives, as flax's
+    `Scope.param` derives them to check a given parameter, remembered by
+    `_shape_key` of the initializer and its arguments (what an
+    initializer's output shape can depend on); anything else is derived
+    anew each time, as flax does."""
+    def derive():
+        out = jax.eval_shape(lambda: init_fn(jax.random.key(0), *args, **kwargs))
+        return [np.shape(leaf) for leaf in jax.tree_util.tree_leaves(out)]
+
+    try:
+        key = _shape_key((init_fn, args, kwargs))
+        hash(key)
+    except (TypeError, ValueError):  # ValueError: an empty closure cell
+        return derive()
+    if key not in _INIT_SHAPES:
+        _INIT_SHAPES[key] = derive()
+    return _INIT_SHAPES[key]
+
+
+def cache_flax_param_shape_check(mp):
+    """While JAX traces a reference, flax's `Scope.param` still checks every
+    given parameter's shape against its initializer's, and raises the same
+    `ScopeParamShapeError` on a mismatch, but derives each initializer's
+    shapes once per process instead of once per parameter and trace (one
+    `jax.eval_shape` each, a large share of a trace's seconds)."""
+    import flax.core.scope as scope
+
+    orig = scope.Scope.param
+
+    def param(self, name, init_fn, *args, unbox=True, **kwargs):
+        if not self.has_variable("params", name):
+            return orig(self, name, init_fn, *args, unbox=unbox, **kwargs)
+        self.reserve(name, "params")
+        value = self.get_variable("params", name)
+        if unbox:
+            value = scope.meta.unbox(value)
+        for val, want in zip(jax.tree_util.tree_leaves(value), _init_shapes(init_fn, args, kwargs)):
+            if np.shape(val) != want:
+                raise scope.errors.ScopeParamShapeError(name, self.path_text, np.shape(val), want)
+        return value
+
+    mp.setattr(scope.Scope, "param", param)
+
+
+@pytest.fixture(scope="module")
+def cached_flax_shape_check():
+    """`cache_flax_param_shape_check` for every test of a module (set with
+    `pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")`, the
+    fixture imported), undone when the module's tests end."""
+    with pytest.MonkeyPatch.context() as mp:
+        cache_flax_param_shape_check(mp)
+        yield
 
 
 def flax_param_shapes(module, *args, **kwargs):

@@ -1,11 +1,11 @@
 """Single-utterance synthesis: tokenize → `model.inference` → waveform or mel.
 
 Counterpart of `tpu_tts/infer/synthesis.py` (`trim_silence`:16,
-`inv_spectrogram`:20, `synthesis`:26): an end-to-end model (VITS) gives the
-waveform; a mel model (Glow-TTS) gives its mel, which the synthesizer hands
-to a vocoder, or which Griffin-Lim turns into a waveform on the host when
-`use_griffin_lim` is set. `do_trim_silence` cuts the waveform at
-`ap.find_endpoint`. A speaker id, a d-vector and a language id reach the
+`inv_spectrogram`:20, `synthesis`:26): an end-to-end model (VITS,
+DelightfulTTS) gives the waveform; a mel model (Glow-TTS) gives its mel,
+which the synthesizer hands to a vocoder, or which Griffin-Lim turns into a
+waveform on the host when `use_griffin_lim` is set. `do_trim_silence` cuts
+the waveform at `ap.find_endpoint`. A speaker id, a d-vector and a language id reach the
 model as one-row `speaker_ids`, `d_vectors` and `language_ids`; the
 language's name also picks the tokenizer's phonemizer, as in JAX.
 `transfer_voice` (`:80`) is VITS voice conversion: a reference waveform
@@ -17,7 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 
 # model families whose inference returns the waveform
-END2END_MODELS = {"vits"}
+END2END_MODELS = {"vits", "delightful_tts"}
 
 
 def trim_silence(wav: np.ndarray, ap) -> np.ndarray:

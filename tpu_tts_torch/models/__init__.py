@@ -13,6 +13,10 @@ def setup_model(config, device=None, samples=None):
         from tpu_tts_torch.models.glow_tts import GlowTTS
 
         return GlowTTS.init_from_config(config, device=device)
+    if name == "delightful_tts":
+        from tpu_tts_torch.models.delightful_tts import DelightfulTTS
+
+        return DelightfulTTS.init_from_config(config, device=device, samples=samples)
     if name == "xtts":
         from tpu_tts_torch.models.xtts import Xtts
 

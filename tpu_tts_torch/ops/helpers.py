@@ -1,7 +1,7 @@
 """Sequence ops of the inference path.
 
 Counterparts of `tpu_tts/ops/helpers.py` (`sequence_mask`:16, `segment`:22,
-`rand_segments`:33, `generate_path`:58) and `tpu_tts/utils/generic_utils.py`
+`rand_segments`:33, `generate_path`:58, `average_over_durations`:71) and `tpu_tts/utils/generic_utils.py`
 (`bucket_len`:56). `generate_path` keeps the JAX layout: durations
 `[B, T_en]`, mask and path `[B, T_en, T_de]`.
 """
@@ -59,6 +59,22 @@ def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     path = (seq[None, None, :] < cum_duration[:, :, None]).to(mask.dtype)
     path = path - F.pad(path, (0, 0, 1, 0))[:, :-1]
     return path * mask
+
+
+def average_over_durations(values: torch.Tensor, durs: torch.Tensor) -> torch.Tensor:
+    """The mean of the nonzero frame values over each token's span of
+    frames: values `[B, C, T_de]`, durations `[B, T_en]` → `[B, C, T_en]`
+    (0 where a span holds no nonzero value)."""
+    ends = torch.cumsum(durs, dim=1).long()  # [B, T_en]
+    starts = F.pad(ends[:, :-1], (1, 0))
+    nonzero_cums = F.pad(torch.cumsum((values != 0).to(values.dtype), dim=2), (1, 0))
+    cums = F.pad(torch.cumsum(values, dim=2), (1, 0))
+    C, last = values.shape[1], values.shape[2]
+    dcs = starts.clamp(0, last)[:, None, :].expand(-1, C, -1)
+    dce = ends.clamp(0, last)[:, None, :].expand(-1, C, -1)
+    sums = torch.gather(cums, 2, dce) - torch.gather(cums, 2, dcs)
+    nelems = torch.gather(nonzero_cums, 2, dce) - torch.gather(nonzero_cums, 2, dcs)
+    return torch.where(nelems == 0, torch.zeros_like(sums), sums / nelems)
 
 
 def bucket_len(n: int, grid: int, cap: int = None) -> int:

@@ -26,6 +26,19 @@ def _np(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32)
 
 
+def gru_from_flax(g) -> Dict[str, np.ndarray]:
+    """A flax `GRUCell`'s params (`ir/iz/in` with bias, `hr/hz` without,
+    `hn` with) → a one-layer torch GRU's `weight_ih_l0`, `weight_hh_l0`,
+    `bias_ih_l0` and `bias_hh_l0` (zeros for r and z: flax has no such bias)."""
+    b_hn = _np(g["hn"]["bias"])
+    return {
+        "weight_ih_l0": np.concatenate([_np(g[k]["kernel"]).T for k in ("ir", "iz", "in")]),
+        "weight_hh_l0": np.concatenate([_np(g[k]["kernel"]).T for k in ("hr", "hz", "hn")]),
+        "bias_ih_l0": np.concatenate([_np(g[k]["bias"]) for k in ("ir", "iz", "in")]),
+        "bias_hh_l0": np.concatenate([np.zeros(2 * b_hn.shape[0], np.float32), b_hn]),
+    }
+
+
 def params_from_flax(params, model_state: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """JAX `WavernnNet` params (+ `model_state`) → the port's `state_dict`."""
     up, cell = params["upsample"], params["cell"]
@@ -64,12 +77,7 @@ def params_from_flax(params, model_state: Optional[Dict] = None) -> Dict[str, to
 
     dense(cell["I"], "I")
     for r in ("rnn1", "rnn2"):
-        g = cell[r]
-        sd[f"{r}.weight_ih_l0"] = np.concatenate([_np(g[k]["kernel"]).T for k in ("ir", "iz", "in")])
-        sd[f"{r}.weight_hh_l0"] = np.concatenate([_np(g[k]["kernel"]).T for k in ("hr", "hz", "hn")])
-        sd[f"{r}.bias_ih_l0"] = np.concatenate([_np(g[k]["bias"]) for k in ("ir", "iz", "in")])
-        b_hn = _np(g["hn"]["bias"])
-        sd[f"{r}.bias_hh_l0"] = np.concatenate([np.zeros(2 * b_hn.shape[0], np.float32), b_hn])
+        sd.update({f"{r}.{k}": v for k, v in gru_from_flax(cell[r]).items()})
     for name in ("fc1", "fc2", "fc3"):
         dense(cell[name], name)
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
