@@ -193,6 +193,23 @@ result line:
    hifigan_mrf delightful ...` lines); a 4-speaker `use_speaker_embedding`
    model, one request a speaker through `cond_layer` and K1, two speakers
    giving other waveforms (`delightful speaker ...` lines);
+19a. DelightfulTTS training: one D and one G step of a tiny DelightfulTTS
+   (aligner priors and the binary term on) on the card against the CPU, in
+   float32 and float64: losses within 1e-4 relative and the MAS durations
+   equal in both, gradients within 1e-3 of each tensor's max in float64
+   (float32's printed: its STFT term's gradient measures rounding there)
+   (`delightful train card vs cpu`); the default
+   model (decoder at unit gain) at the LJSpeech recipe's settings (batch
+   32, mixed precision, no priors, no binary term) on 32 + 4 seeded clips of
+   2–10 s, the pyin F0 cache filled by 8 processes first (`delightful train
+   data`), through `Trainer.fit` for 2 steps: ms a step (D, G, updates),
+   peak memory, a profiled step, finite losses, every gradient nonzero, K1
+   launched no time (`delightful train steps`); one more epoch against the
+   same epoch resumed (`delightful train resume`); 5 steps on one batch
+   lowering the acoustic mel loss (`delightful train overfit`); the run
+   directory served by `/api/tts` through K1, 72 launches, within 1e-3 of
+   the plain MRF, at most half its samples saturated (`delightful train
+   serve`);
 20. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
 
 Each serving phase's requests are a main path: the launch counts are set to
@@ -1597,10 +1614,13 @@ def random_text(rng, lo: int = 40, hi: int = 180) -> str:
     return (" ".join(words)[:target].rstrip() + ".").capitalize()
 
 
-def write_clips(root: str, seed: int, n_train: int, n_eval: int, seconds_range, sr: int = 22050) -> dict:
+def write_clips(root: str, seed: int, n_train: int, n_eval: int, seconds_range, sr: int = 22050,
+                chars_per_s: float = None) -> dict:
     """n_train clips (`metadata.csv`) and n_eval (`metadata_val.csv`) in
     LJSpeech's layout from a numpy seed, each `voiced_clip` of a length
-    uniform in `seconds_range`, with a `random_text`."""
+    uniform in `seconds_range`, with a `random_text` (of 0.8–1.2 ×
+    `chars_per_s` characters a second when given, LJSpeech's rate being
+    about 15)."""
     import numpy as np
     import scipy.io.wavfile
 
@@ -1614,7 +1634,8 @@ def write_clips(root: str, seed: int, n_train: int, n_eval: int, seconds_range, 
             dur = rng.uniform(*seconds_range)
             sig = voiced_clip(rng, sr, dur)
             scipy.io.wavfile.write(os.path.join(root, "wavs", name + ".wav"), sr, (sig * 32767).astype(np.int16))
-            text = random_text(rng)
+            text = random_text(rng) if chars_per_s is None else random_text(
+                rng, int(0.8 * chars_per_s * dur), int(1.2 * chars_per_s * dur))
             lines.append(f"{name}|{text}|{text}")
             seconds.append(dur)
         with open(os.path.join(root, meta), "w", encoding="utf-8") as f:
@@ -1643,13 +1664,14 @@ class TrainProbe:
     """Watches a `Trainer` without changing what it computes: per step the
     wall time (host clock, synchronised), CUDA events around each sub-step's
     loss and backward and each optimizer update, the losses, the batch's
-    clips and seconds of audio; the MAS host round trips; at the second step,
+    clips and seconds of audio; the MAS host round trips (of a model whose
+    module calls `maximum_path`: VITS, DelightfulTTS); at the second step,
     every parameter whose gradient is missing or zero."""
 
     def __init__(self, trainer):
         import torch
 
-        import tpu_tts_torch.models.vits as vits_module
+        model_module = sys.modules[type(trainer.model).__module__]
 
         self.steps, self.mas_ms, self.zero_grads, self.cur = [], [], None, None
         self.sr = trainer.model.config.audio.sample_rate
@@ -1695,7 +1717,7 @@ class TrainProbe:
             return out
 
         trainer.train_step = train_step
-        orig_mas = vits_module.maximum_path
+        orig_mas = getattr(model_module, "maximum_path", None)
 
         def maximum_path(value, mask):
             torch.cuda.synchronize()
@@ -1706,8 +1728,11 @@ class TrainProbe:
                 self.mas_ms.append((time.perf_counter() - t0) * 1e3)
             return path
 
-        vits_module.maximum_path = maximum_path
-        self._restore = lambda: setattr(vits_module, "maximum_path", orig_mas)
+        if orig_mas is None:
+            self._restore = lambda: None
+            return
+        model_module.maximum_path = maximum_path
+        self._restore = lambda: setattr(model_module, "maximum_path", orig_mas)
 
     def _mark(self, name: str):
         import torch
@@ -1859,11 +1884,12 @@ def check_mrf_refuses_gradient() -> dict:
     return out
 
 
-def serve_trained(paths: dict, device: str = "cuda", label: str = "train serve") -> dict:
+def serve_trained(paths: dict, device: str = "cuda", label: str = "train serve", max_saturated: float = None) -> dict:
     """The trained checkpoint through the port's `Synthesizer` and `/api/tts`
     (the locked path): one request of one sentence, its K1 launches counted
     (72 expected), its WAV checked; then the served model's waveform against
-    the same model with the plain MRF version (≤ 1e-3)."""
+    the same model with the plain MRF version (≤ 1e-3), and with
+    `max_saturated` at most that share of its samples at |x| > 0.999."""
     import numpy as np
     import scipy.io.wavfile
     import torch
@@ -1894,14 +1920,16 @@ def serve_trained(paths: dict, device: str = "cuda", label: str = "train serve")
             ref = model.inference(ids)["model_outputs"]
         out = {"status": status, "sample_rate": sr, "samples": int(pcm.size), "latency_s": latency,
                "hifigan_mrf_launches": launches, "max_abs_err_vs_plain": float((got - ref).abs().max()),
-               "rms": float(ref.pow(2).mean().sqrt()), "tol": 1e-3}
+               "rms": float(ref.pow(2).mean().sqrt()), "saturated": float((ref.abs() > 0.999).float().mean()),
+               "tol": 1e-3}
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
     log(f"{label} " + json.dumps(out))
     if status != 200 or launches != 72 or not np.isfinite(pcm).all() or pcm.size == 0 \
-            or not torch.isfinite(got).all() or out["max_abs_err_vs_plain"] > 1e-3 or out["rms"] == 0:
+            or not torch.isfinite(got).all() or out["max_abs_err_vs_plain"] > 1e-3 or out["rms"] == 0 \
+            or (max_saturated is not None and out["saturated"] > max_saturated):
         raise AssertionError(f"the trained checkpoint did not serve through K1: {out}")
     return out
 
@@ -2620,13 +2648,14 @@ MP_COMPARE = ("step_ms", "d_substep_ms", "g_substep_ms", "optimizer_ms", "wall_m
 
 
 def fit_and_probe(config, train_samples, eval_samples, out: str, device: str = "cuda", model=None,
-                  profile: str = "") -> dict:
-    """`Trainer.fit` of `config` (its model from seed 0 with the decoder at
-    unit gain unless given) under `TrainProbe`: the mean of each timed
-    quantity over the steps after the first, peak memory, K1's launches,
-    the first and last losses; every loss must be finite and every
-    parameter have a nonzero gradient at step 2. With `profile`, one more
-    step is profiled under that name."""
+                  profile: str = "", keep: bool = False):
+    """`Trainer.fit` of `config` (its VITS from seed 0 with the decoder at
+    unit gain unless a model is given) under `TrainProbe`: the mean of each
+    timed quantity over the steps after the first, peak memory, K1's
+    launches, the first and last losses; every loss must be finite and
+    every parameter have a nonzero gradient at step 2. With `profile`, one
+    more step is profiled under that name. With `keep`, returns (the row,
+    the trainer, its probe) for more steps."""
     import math
 
     import torch
@@ -2656,7 +2685,7 @@ def fit_and_probe(config, train_samples, eval_samples, out: str, device: str = "
     if profile:
         batch = next(iter(model.get_data_loader(trainer.config, {}, is_eval=False, samples=train_samples,
                                                 verbose=False)))
-        profile_call(lambda: trainer.train_step(batch), {"model": "vits", "call": profile,
+        profile_call(lambda: trainer.train_step(batch), {"model": config.model, "call": profile,
                                                          "batch": config.batch_size}, top=10)
     timed = [probe.step_ms(s) for s in steps[1:]]  # the first step warms cuDNN up
     row = {"steps": len(steps), "batch": config.batch_size, "fit_s": fit_s,
@@ -2673,6 +2702,8 @@ def fit_and_probe(config, train_samples, eval_samples, out: str, device: str = "
                              f"{(probe.zero_grads or ['(none checked)'])[:8]}")
     if launches != 0 or row["param_dtypes"] != ["torch.float32"] or row["optimizer_state_dtypes"] != ["torch.float32"]:
         raise AssertionError(f"training launched K1 or left float32: {row}")
+    if keep:
+        return row, trainer, probe
     del trainer, model
     torch.cuda.empty_cache()
     return row
@@ -3598,6 +3629,282 @@ def delightful_phase(tmp: str, device: str = "cuda") -> dict:
             "phase_wall_s": wall}
 
 
+# ---------------------------------------------------------------- DelightfulTTS training
+DT_TRAIN_CLIPS, DT_TRAIN_EVAL_CLIPS = 32, 4  # one batch of the recipe's 32 an epoch; 2–10 s each
+DT_TRAIN_EPOCHS = 2  # one step each; then one more epoch, resumed and uninterrupted
+DT_OVERFIT_STEPS = 5
+DT_F0_WORKERS = 8  # processes that fill the pyin cache before training (the card's machine has 8 cores)
+
+
+def delightful_tiny_config():
+    """The CPU test's tiny DelightfulTTS (`tests/test_torch_port_delightful_train.py`):
+    hidden 32, one conformer layer of two heads, `spec_segment_size` 8,
+    HiFi-GAN 16 channels up by 8·8·4, dropout 0, one period discriminator;
+    the default losses (aligner priors and the binary term on)."""
+    from tpu_tts_torch.configs import DelightfulTTSConfig
+
+    config = DelightfulTTSConfig(text_cleaner="english_cleaners")
+    ma, v = config.model_args, config.vocoder
+    ma.n_hidden_conformer_encoder = ma.n_hidden_conformer_decoder = ma.n_hidden_variance_adaptor = 32
+    ma.n_layers_conformer_encoder = ma.n_layers_conformer_decoder = 1
+    ma.n_heads_conformer_encoder = ma.n_heads_conformer_decoder = 2
+    ma.bottleneck_size_u_reference_encoder, ma.ref_enc_filters_reference_encoder = 32, [4, 4, 8, 8, 16, 16]
+    ma.spec_segment_size = 8
+    ma.dropout_conformer_encoder = ma.dropout_conformer_decoder = ma.dropout_variance_adaptor = 0.0
+    v.upsample_rates_decoder, v.upsample_kernel_sizes_decoder = [8, 8, 4], [16, 16, 8]
+    v.upsample_initial_channel_decoder = 16
+    v.resblock_kernel_sizes_decoder, v.resblock_dilation_sizes_decoder = [3], [[1, 3]]
+    v.periods_discriminator = [2]
+    return config
+
+
+def delightful_tiny_batch(config) -> dict:
+    """Two rows of 11 and 7 tokens over 24 and 18 mel frames from a numpy
+    seed: voiced tones with noise, a pyin-like pitch (0 on some frames), the
+    beta-binomial priors, the decoder windows' uniforms (`segments`)."""
+    import numpy as np
+
+    from tpu_tts_torch.ops.helpers import compute_attn_prior
+
+    rng = np.random.default_rng(SEED)
+    B, T_x, T_mel, hop = 2, 11, 24, config.audio.hop_length
+    x_lens, mel_lens = np.array([T_x, 7]), np.array([T_mel, 18])
+    wav = np.zeros((B, 1, T_mel * hop), np.float32)
+    pitch = np.zeros((B, T_mel), np.float32)
+    priors = np.zeros((B, T_mel, T_x), np.float32)
+    x = np.zeros((B, T_x), np.int64)
+    for i in range(B):
+        n = mel_lens[i] * hop
+        t = np.arange(n)
+        wav[i, 0, :n] = 0.4 * np.sin(2 * np.pi * (0.01 + 0.004 * i) * t) + 0.05 * rng.standard_normal(n)
+        pitch[i, : mel_lens[i]] = (120 + 40 * rng.uniform(size=mel_lens[i])) * (rng.uniform(size=mel_lens[i]) > 0.2)
+        priors[i, : mel_lens[i], : x_lens[i]] = compute_attn_prior(int(x_lens[i]), int(mel_lens[i]))
+        x[i, : x_lens[i]] = rng.integers(1, 40, x_lens[i])
+    return {"text_input": x, "text_lengths": x_lens, "mel_lengths": mel_lens, "waveform": wav, "pitch": pitch,
+            "attn_priors": priors, "segments": rng.uniform(size=B).astype(np.float32)}
+
+
+def check_delightful_train_card_vs_cpu(devices=("cpu", "cuda")) -> dict:
+    """One D step and one G step of the tiny DelightfulTTS (torch's init from
+    SEED, the decoder at unit gain) on the card against the same step on the
+    CPU, the same weights, batch and window draws, in float32 and in float64
+    (TF32 off): in both, the losses within TRAIN_STEP_TOL[0] relative and the
+    aligner's MAS durations equal; in float64, each gradient within
+    TRAIN_STEP_TOL[1] of its tensor's largest |gradient| plus 1e-6. The
+    float32 gradients' distance is printed, not bounded: the multi-scale
+    STFT term's log-magnitude gradient amplifies float32 rounding on this
+    batch (the CPU's own float32 gradients, 1 thread against 4, part by up
+    to 8e-4 of a tensor's max, and from float64's by up to 5e-2; float64's
+    by 1e-9), so there float32 measures the rounding, not the devices."""
+    import torch
+
+    import tpu_tts_torch.models.delightful_tts as dtts
+
+    config = delightful_tiny_config()
+    batch = delightful_tiny_batch(config)
+    seen, mas = [], dtts.maximum_path
+    dtts.maximum_path = lambda v, mask: seen.append(mas(v, mask)) or seen[-1]
+    out = {"tol": list(TRAIN_STEP_TOL)}
+    try:
+        for dtype in (torch.float32, torch.float64):
+            models = {}
+            for dev in devices:
+                torch.manual_seed(SEED)
+                m = dtts.DelightfulTTS.init_from_config(config, device=dev)
+                m.init_training()
+                unit_gain_decoder(m.net.waveform_decoder)
+                models[dev] = m
+            for dev in devices[1:]:
+                models[dev].load_training_state(models[devices[0]].training_state_dict(), strict=True)
+            worst_loss, worst_grad = 0.0, 0.0
+            for idx in (0, 1):
+                res = {}
+                for dev, m in models.items():
+                    m.net.to(dtype)
+                    m.disc.to(dtype)
+                    m.train(True)
+                    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+                    b.update({k: b[k].to(dtype) for k in ("waveform", "pitch", "attn_priors")})
+                    seen.clear()
+                    loss, logs = m.loss_fn(b, idx, draws={"segments": b.pop("segments")})
+                    loss.backward()
+                    mod = m.disc if idx == 0 else m.net
+                    res[dev] = ({k: float(v) for k, v in logs.items()}, seen[0].sum(-1).cpu(),
+                                {n: p.grad.detach().cpu() for n, p in mod.named_parameters() if p.grad is not None})
+                    m.disc.zero_grad(set_to_none=True)
+                    m.net.zero_grad(set_to_none=True)
+                (lc, dc, gc), (lg, dg, gg) = res[devices[0]], res[devices[-1]]
+                if set(lc) != set(lg) or not torch.equal(dc, dg) or set(gc) != set(gg) or not gc:
+                    raise AssertionError(f"the card and the CPU gave other loss terms, MAS durations or gradient "
+                                         f"sets ({dtype}, {idx})")
+                for k in lc:
+                    worst_loss = max(worst_loss, abs(lc[k] - lg[k]) / max(1.0, abs(lc[k])))
+                for n in gc:
+                    scale = float(gc[n].abs().max())
+                    worst_grad = max(worst_grad, (float((gc[n] - gg[n]).abs().max()) - 1e-6) / max(scale, 1e-12))
+                out[f"{str(dtype)[6:]}_losses_{idx}"] = {k: [lc[k], lg[k]] for k in lc}
+                out["mas_durations"] = dc.tolist()
+            out[str(dtype)[6:]] = {"max_loss_rel_err": worst_loss, "max_grad_err_of_max": worst_grad}
+    finally:
+        dtts.maximum_path = mas
+    log("delightful train card vs cpu " + json.dumps(out))
+    f32, f64 = out["float32"], out["float64"]
+    if not (f32["max_loss_rel_err"] <= TRAIN_STEP_TOL[0] and f64["max_loss_rel_err"] <= TRAIN_STEP_TOL[0]
+            and f64["max_grad_err_of_max"] <= TRAIN_STEP_TOL[1]):
+        raise AssertionError(f"the tiny DelightfulTTS step on the card disagrees with the CPU: {out}")
+    return out
+
+
+def delightful_train_config(root: str, out: str, epochs: int):
+    """The LJSpeech DelightfulTTS recipe's settings (`recipes/ljspeech/
+    delightful_tts/train_delightful_tts.py`: the default model, batch 32,
+    `mixed_precision`, no aligner priors, no binary alignment term, pyin F0
+    cached) with the `en_rules` phonemes (no espeak on the card's machine)
+    and 4 loader threads."""
+    from tpu_tts_torch.config.shared_configs import BaseDatasetConfig
+    from tpu_tts_torch.configs import DelightfulTTSConfig
+
+    return DelightfulTTSConfig(
+        batch_size=32, eval_batch_size=DT_TRAIN_EVAL_CLIPS, batch_group_size=2, num_loader_workers=4,
+        run_eval=True, test_delay_epochs=-1, epochs=epochs, print_step=1, save_step=0, save_n_checkpoints=10,
+        output_path=out, text_cleaner="english_cleaners", use_phonemes=True, phonemizer="en_rules",
+        phoneme_language="en", compute_f0=True, f0_cache_path=os.path.join(root, "f0_cache"), mixed_precision=True,
+        binary_align_loss_alpha=0.0, use_attn_priors=False, training_seed=SEED + 1,
+        datasets=[BaseDatasetConfig(formatter="ljspeech", dataset_name="smoke", path=root,
+                                    meta_file_train="metadata.csv", meta_file_val="metadata_val.csv")])
+
+
+def clip_f0(job):
+    """One clip's pyin F0, as the dataset computes it (a worker process's
+    task; it imports numpy and the port's audio modules, not torch)."""
+    import numpy as np
+
+    from tpu_tts_torch.audio import AudioProcessor
+
+    audio, wav_path = job
+    ap = AudioProcessor(**audio)
+    return ap.compute_f0(np.asarray(ap.load_wav(wav_path), dtype=np.float32)).astype(np.float32)
+
+
+def prefill_f0_cache(config, samples) -> float:
+    """The pyin F0 of every sample into `config.f0_cache_path`, computed by
+    DT_F0_WORKERS spawned processes (the recipe's `precompute_num_workers`;
+    the loader would compute them in its threads, under the GIL); seconds."""
+    import multiprocessing
+
+    from tpu_tts_torch.data.dataset import FeatureCache
+
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(DT_F0_WORKERS) as pool:
+        f0s = pool.map(clip_f0, [(config.audio.to_dict(), s["audio_file"]) for s in samples])
+    cache = FeatureCache(config.f0_cache_path, "_f0.npy")
+    for sample, f0 in zip(samples, f0s):
+        cache.get(sample["audio_unique_name"], lambda f0=f0: f0)
+    return time.perf_counter() - t0
+
+
+def delightful_train_phase(tmp: str, device: str = "cuda") -> dict:
+    """Phase 19a, DelightfulTTS training: (a) the tiny D and G steps on the
+    card against the CPU, priors and the binary term on; (b) the default
+    model (its decoder redrawn at unit gain, ROADMAP F7) at the LJSpeech
+    recipe's settings on DT_TRAIN_CLIPS seeded clips of 2–10 s (texts of
+    about 15 characters a second, so that no text outruns its frames), the
+    pyin cache filled first, through `Trainer.fit` for DT_TRAIN_EPOCHS steps: ms a
+    step (D, G, updates), peak memory, finite losses, every gradient nonzero
+    at step 2, K1 launched no time (`delightful train steps`); one more
+    epoch uninterrupted against the same epoch resumed by a new model and
+    trainer from the checkpoint (`delightful train resume`); a profiled step
+    (the device's idle share); DT_OVERFIT_STEPS steps on one batch with
+    the same draws, the acoustic mel loss falling (`delightful train
+    overfit`); (c) the trained run directory served by `/api/tts` through
+    K1: 72 launches, within 1e-3 of the plain MRF, at most half its samples
+    saturated (`delightful train serve`)."""
+    import statistics
+
+    import torch
+
+    from tpu_tts_torch.data import load_tts_samples
+    from tpu_tts_torch.models.delightful_tts import DelightfulTTS
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.train import Trainer, TrainerArgs
+    from tpu_tts_torch.train.checkpoint import get_last_checkpoint
+
+    t0 = time.perf_counter()
+    parts = {}
+    tiny = check_delightful_train_card_vs_cpu()
+    parts["card_vs_cpu_s"] = time.perf_counter() - t0
+    root, out = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+    data = write_clips(root, SEED + 13, DT_TRAIN_CLIPS, DT_TRAIN_EVAL_CLIPS, (2.0, 10.0), chars_per_s=15.0)
+    config = delightful_train_config(root, out, DT_TRAIN_EPOCHS)
+    train_samples, eval_samples = load_tts_samples(config.datasets, eval_split=True)
+    data["f0_prefill_s"] = prefill_f0_cache(config, train_samples + eval_samples)
+    log("delightful train data " + json.dumps(data))
+    parts["data_s"] = time.perf_counter() - t0 - sum(parts.values())
+    torch.manual_seed(SEED)
+    model = DelightfulTTS.init_from_config(config, device=device, samples=train_samples)
+    unit_gain_decoder(model.net.waveform_decoder)
+    params = sum(p.numel() for p in model.net.parameters())
+    row, trainer, probe = fit_and_probe(config, train_samples, eval_samples, out, device, model=model, keep=True)
+    row["mas_round_trip_ms"] = statistics.mean(probe.mas_ms) if probe.mas_ms else None
+    log("delightful train steps " + json.dumps({**row, "generator_params": params,
+                                                "disc_params": sum(p.numel() for p in model.disc.parameters())}))
+    parts["fit_s"] = time.perf_counter() - t0 - sum(parts.values())
+
+    # one more epoch, uninterrupted, then the same epoch resumed from the checkpoint
+    checkpoint, _ = get_last_checkpoint(out)
+    n0 = len(probe.steps)
+    trainer.config.epochs = DT_TRAIN_EPOCHS + 1
+    trainer.fit()
+    uninterrupted = TrainProbe.losses(probe.steps[n0])
+    model_b = DelightfulTTS.init_from_config(delightful_train_config(root, out, DT_TRAIN_EPOCHS + 1), device=device,
+                                             samples=train_samples)
+    trainer_b = Trainer(TrainerArgs(device=device, continue_path=checkpoint), model_b.config,
+                        os.path.join(tmp, "resumed"), model=model_b, train_samples=train_samples,
+                        eval_samples=eval_samples)
+    probe_b = TrainProbe(trainer_b)
+    try:
+        trainer_b.fit()
+    finally:
+        probe_b.close()
+    resumed = TrainProbe.losses(probe_b.steps[0])
+    rel = max(abs(resumed[k] - uninterrupted[k]) / max(1.0, abs(uninterrupted[k])) for k in uninterrupted)
+    log("delightful train resume " + json.dumps({"checkpoint": os.path.basename(checkpoint), "max_rel_err": rel,
+                                                 "tol": RESUME_TOL, "uninterrupted": uninterrupted,
+                                                 "resumed": resumed}))
+    if set(resumed) != set(uninterrupted) or not rel <= RESUME_TOL:
+        raise AssertionError(f"the resumed DelightfulTTS run's next step differs from the uninterrupted run's: {rel}")
+    del trainer_b, model_b, probe_b
+    torch.cuda.empty_cache()
+    parts["resume_s"] = time.perf_counter() - t0 - sum(parts.values())
+
+    # a profiled step, then fixed-batch steps with the same draws: the acoustic mel loss must fall
+    batch = next(iter(model.get_data_loader(trainer.config, {}, is_eval=False, samples=train_samples, verbose=False)))
+    profile_call(lambda: trainer.train_step(batch), {"model": config.model, "batch": config.batch_size,
+                                                     "call": "one bfloat16 training step (D then G)"}, top=10)
+    mel = []
+    for _ in range(DT_OVERFIT_STEPS):
+        trainer.generator.manual_seed(SEED)
+        torch.manual_seed(SEED)
+        mel.append(float(trainer.train_step(batch)["opt1_loss_mel"]))
+    overfit = {"steps": len(mel), "loss_mel": mel, "first": mel[0], "median_last3": statistics.median(mel[-3:])}
+    log("delightful train overfit " + json.dumps(overfit))
+    launches = hifigan_mrf.launches  # every step since `fit_and_probe` zeroed the count: fit, profile, resume, overfit
+    if not overfit["median_last3"] < overfit["first"] or launches != 0:
+        raise AssertionError(f"fixed-batch steps did not lower the mel loss, or training launched K1 {launches} times: "
+                             f"{overfit}")
+    del trainer, model, probe, batch
+    torch.cuda.empty_cache()
+    parts["profile_overfit_s"] = time.perf_counter() - t0 - sum(parts.values())
+
+    served = serve_trained({"model_path": get_last_checkpoint(out)[0], "config_path": os.path.join(out, "config.json")},
+                           device, label="delightful train serve", max_saturated=0.5)
+    wall = time.perf_counter() - t0
+    parts["serve_s"] = wall - sum(parts.values())
+    log(f"delightful train phase wall: {wall:.1f} s " + json.dumps(parts))
+    return {**row, "hifigan_mrf_launches": launches, "tiny": tiny, "resume_max_rel_err": rel, "overfit": overfit,
+            "served": served, "phase_wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -3675,6 +3982,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         delightful = delightful_phase(tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        delightful_train = delightful_train_phase(tmp)
 
     f32 = [r for r in rows if r["dtype"] == "float32"]
     served = next(r for r in k2_rows if r["mode"] == "sampled")  # the mode the vocoder serves
@@ -3747,6 +4057,10 @@ def main() -> int:
         "delightful_speaker_max_abs_err": delightful["speaker_max_abs_err"],
         "shapes_delightful": delightful["shapes"],
         "delightful_f32": {k: sum(r[k] for r in delightful["shapes"]) for k in ("ms", "plain_ms", "bound_ms")},
+        # DelightfulTTS training (the generator in train() mode runs plain ResBlock1): 0; its run directory: 72
+        "delightful_train_launches": delightful_train["hifigan_mrf_launches"],
+        "delightful_train_serve_launches": delightful_train["served"]["hifigan_mrf_launches"],
+        "delightful_train_serve_max_abs_err": delightful_train["served"]["max_abs_err_vs_plain"],
         "launches_all_phases": (mrf_launches + batched["launches"] + multi["launches"] + yourtts["hifigan_mrf_launches"]
                                 + xtts["launches"] + train["hifigan_mrf_launches"]
                                 + train["served"]["hifigan_mrf_launches"] + xtts_train["hifigan_mrf_launches"]
@@ -3756,7 +4070,9 @@ def main() -> int:
                                 + cloning["xtts"]["hifigan_mrf_launches"] + cloning["vits"]["hifigan_mrf_launches"]
                                 + sum(v["hifigan_mrf_launches"] for v in vocoder["served"].values())
                                 + vocoder["run_served"]["hifigan_mrf_launches"]
-                                + delightful["hifigan_mrf_launches"] + delightful["speaker_launches"]),
+                                + delightful["hifigan_mrf_launches"] + delightful["speaker_launches"]
+                                + delightful_train["hifigan_mrf_launches"]
+                                + delightful_train["served"]["hifigan_mrf_launches"]),
     }, {
         "name": "wavernn_sampler",
         "route": "cuda",

@@ -812,6 +812,39 @@ def test_delightful_tts_through_k1():
 
 
 @pytest.mark.cuda
+def test_delightful_train_step_on_card_matches_cpu():
+    """One D and one G step of `chip_smoke`'s tiny DelightfulTTS (aligner
+    priors and the binary term on) on the card against the CPU, float32 and
+    float64, TF32 off: losses within 1e-4 relative and the MAS durations
+    equal in both, each float64 gradient within 1e-3 of its tensor's largest
+    |gradient| plus 1e-6 (`check_delightful_train_card_vs_cpu` says why not
+    float32's). The
+    training generator in eval() mode asks K1 for a gradient and is refused;
+    in train() mode it runs plain ResBlock1, no K1 launch, every decoder
+    parameter with a gradient."""
+    import chip_smoke
+    from tpu_tts_torch.models.delightful_tts import DelightfulTTS
+
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = chip_smoke.check_delightful_train_card_vs_cpu()
+    assert out["float32"]["max_loss_rel_err"] <= 1e-4 and out["float64"]["max_loss_rel_err"] <= 1e-4
+    assert out["float64"]["max_grad_err_of_max"] <= 1e-3
+    model = DelightfulTTS.init_from_config(chip_smoke.delightful_tiny_config(), device="cuda")
+    model.init_training()
+    dec = model.net.waveform_decoder
+    x = torch.randn(2, model.config.audio.num_mels, 8, device="cuda")
+    dec.eval()
+    with pytest.raises(RuntimeError, match="no backward"):
+        dec(x)
+    dec.train()
+    before = hifigan_mrf.launches
+    dec(x).square().mean().backward()
+    assert hifigan_mrf.launches == before
+    assert all(p.grad is not None and float(p.grad.abs().max()) > 0 for p in dec.parameters())
+
+
+@pytest.mark.cuda
 def test_speaker_encoders_on_card_match_cpu():
     """The LSTM, a narrow "batch" ResNet in eval and the full XTTS-side ResNet
     (64 → 512, frozen batch norms) with seeded weights: the card's embedding

@@ -353,11 +353,13 @@ def test_inference_matches_jax_pallas_decoder(variant):
 
 def test_config_setup_model_and_training_raises(tmp_path):
     """A `config.json` that `tpu_tts` writes loads as the port's
-    `DelightfulTTSConfig`, each of the port's model, vocoder, audio and
-    speaker settings equal to `tpu_tts`'s (the training settings, which
-    the port does not hold yet, are passed over);
-    `setup_model` builds the model (on the card unless asked for the CPU);
-    each training entry raises and names the ROADMAP item."""
+    `DelightfulTTSConfig`, each of the port's own model, vocoder, audio,
+    speaker and training settings equal to `tpu_tts`'s (the fields
+    `tpu_tts` never reads for DelightfulTTS, ROADMAP.md F19, are passed
+    over); `setup_model` builds the model (on the card unless asked for the
+    CPU); the training entries no longer raise: `init_training` builds the
+    discriminator of `periods_discriminator`, and `get_optimizer` the D and
+    G AdamW optimizers with their exponential schedules and clip."""
     from tpu_tts_torch.config import load_config
     from tpu_tts_torch.configs import DelightfulTTSConfig
     from tpu_tts_torch.models import setup_model
@@ -369,17 +371,30 @@ def test_config_setup_model_and_training_raises(tmp_path):
     for key in ("model_args", "vocoder", "audio"):
         port, ref = cfg[key].to_dict(), jm.config[key].to_dict()
         assert port == {k: ref[k] for k in port}, key
-    top = [k for k, v in cfg.to_dict().items() if not isinstance(v, dict) and k in DelightfulTTSConfig.__annotations__]
+    assert {"spec_segment_size"} <= set(cfg.model_args.to_dict())
+    assert {"periods_discriminator", "use_spectral_norm_discriminator"} <= set(cfg.vocoder.to_dict())
+    top = [k for k in DelightfulTTSConfig.__annotations__ if k not in ("model_args", "vocoder", "audio")]
+    assert {"use_attn_priors", "lr_gen", "binary_align_loss_alpha", "multi_scale_stft_loss_params",
+            "f0_cache_path"} <= set(top)
     assert {k: cfg[k] for k in top} == {k: jm.config[k] for k in top}
+    unread = {"init_discriminator", "steps_to_start_discriminator", "ssim_loss_alpha", "char_dur_loss_alpha",
+              "binary_loss_warmup_epochs"}
+    assert unread <= set(jm.config.to_dict()) and not unread & set(cfg.to_dict())
     pm = setup_model(cfg, device="cpu")
     assert type(pm).__name__ == "DelightfulTTS" and pm.net.acoustic_model.emb_g.num_embeddings == N_SPEAKERS
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             setup_model(cfg)  # the card by default
-    for call in (lambda: pm.loss_fn({}, 0), pm.get_optimizer, pm.init_training, lambda: pm.net(None),
-                 lambda: pm.net.acoustic_model(None), lambda: pm.get_data_loader(None, None, False, [], False)):
-        with pytest.raises(NotImplementedError, match="DelightfulTTS training"):
-            call()
+    pm.config.vocoder.periods_discriminator = [2]  # the default five hold 46 M parameters to initialise
+    pm.init_training()
+    assert pm.num_optimizers() == 2 and len(pm.disc.nets) == 2
+    opt_d, opt_g = pm.get_optimizer()
+    assert [len(o.params) for o in (opt_d, opt_g)] == [len(list(pm.disc.parameters())),
+                                                      len(list(pm.net.parameters()))]
+    for opt, lr in ((opt_d, cfg.lr_disc), (opt_g, cfg.lr_gen)):
+        assert type(opt.inner).__name__ == "AdamW" and opt.grad_clip == cfg.grad_clip
+        assert opt.lr() == pytest.approx(lr)
+        assert opt.inner.param_groups[0]["betas"] == (0.8, 0.99) and opt.inner.param_groups[0]["weight_decay"] == 0.01
 
 
 # --------------------------------------------------------------------------- serving

@@ -5,8 +5,9 @@ Counterpart of `tpu_tts/audio/numpy_transforms.py`, which re-implements
 Coqui TTS `TTS/utils/audio/numpy_transforms.py` on numpy + scipy without
 librosa (Slaney mel scale and norm, centred reflect-padded STFT). These run
 on the host in both packages: Griffin-Lim is no TPU kernel and gets no CUDA
-kernel. The f0/energy and quantisation helpers of the JAX module belong to
-training and come with it (ROADMAP.md).
+kernel. `pyin` and `compute_f0` are copies of the JAX module's, the pitch
+targets of DelightfulTTS training; its energy and quantisation helpers come
+with the models that read them (ROADMAP.md).
 
 All functions take keyword-only arguments and swallow extra `**kwargs`, so
 a whole audio-config dict can be splatted in, as in the JAX module.
@@ -276,6 +277,224 @@ def mel_to_spec(*, mel: np.ndarray = None, mel_basis: np.ndarray = None, **kwarg
     assert (mel < 0).sum() == 0, " [!] Input values must be non-negative."
     inv_mel_basis = np.linalg.pinv(mel_basis)
     return np.maximum(1e-10, np.dot(inv_mel_basis, mel))
+
+
+# ---------------------------------------------------------------------------
+# F0 (probabilistic YIN): training's pitch targets
+# ---------------------------------------------------------------------------
+
+def _beta_cdf(x: np.ndarray, a: float, b: float) -> np.ndarray:
+    from scipy.special import betainc
+
+    return betainc(a, b, x)
+
+
+def pyin(
+    y: np.ndarray,
+    *,
+    fmin: float,
+    fmax: float,
+    sr: int,
+    frame_length: int,
+    win_length: int = None,
+    hop_length: int = None,
+    n_thresholds: int = 100,
+    beta_parameters: Tuple[float, float] = (2, 18),
+    boltzmann_parameter: float = 2.0,
+    resolution: float = 0.1,
+    max_transition_rate: float = 35.92,
+    switch_prob: float = 0.01,
+    no_trough_prob: float = 0.01,
+    center: bool = True,
+    pad_mode: str = "reflect",
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Probabilistic YIN (Mauch & Dixon 2014): F0 with a Viterbi-decoded
+    voicing decision, with `librosa.pyin`'s parameters, on numpy and scipy.
+    A copy of `tpu_tts/audio/numpy_transforms.py::pyin`.
+
+    Returns (f0[T], voiced_flag[T], voiced_prob[T]).
+    """
+    win_length = win_length or frame_length // 2
+    hop_length = hop_length or frame_length // 4
+    y = np.asarray(y, dtype=np.float64)
+    if center:
+        y = np.pad(y, frame_length // 2, mode=pad_mode)
+    frames = frame_signal(np.ascontiguousarray(y), frame_length, hop_length)  # [T, frame_length]
+    T = frames.shape[0]
+
+    min_period = max(int(np.floor(sr / fmax)), 1)
+    max_period = min(int(np.ceil(sr / fmin)), frame_length - win_length - 1)
+    W = win_length
+
+    # --- YIN difference function d(tau) over the W-sample window, per frame,
+    # via the autocorrelation identity (O(T·F logF) instead of O(T·tau·W))
+    fsize = 1 << (frame_length + max_period).bit_length()
+    fft = np.fft.rfft(frames, fsize, axis=1)
+    # cross-correlation of x[0:W] with x[tau:tau+W]: full autocorr of the
+    # frame restricted to the window — compute corr(x, x_w) where x_w is the
+    # frame with only the first W samples kept
+    frames_w = frames.copy()
+    frames_w[:, W:] = 0.0
+    fft_w = np.fft.rfft(frames_w, fsize, axis=1)
+    acf = np.fft.irfft(fft * np.conj(fft_w), fsize, axis=1)[:, : max_period + 1]
+    cum = np.concatenate([np.zeros((T, 1)), np.cumsum(frames**2, axis=1)], axis=1)
+    e0 = cum[:, W]  # energy of x[0:W]
+    taus = np.arange(max_period + 1)
+    e_tau = cum[:, taus + W] - cum[:, taus]  # energy of x[tau:tau+W]
+    d = e0[:, None] + e_tau - 2 * acf  # [T, max_period+1]
+
+    # cumulative mean normalized difference
+    with np.errstate(divide="ignore", invalid="ignore"):
+        denom = np.cumsum(d[:, 1:], axis=1) / taus[1:][None, :]
+        cmnd = np.ones_like(d)
+        cmnd[:, 1:] = np.where(denom > 0, d[:, 1:] / denom, 1.0)
+    yin_band = cmnd[:, min_period : max_period + 1]  # [T, L]
+    L = yin_band.shape[1]
+    if L < 3 or T == 0:
+        z = np.zeros(T, dtype=np.float32)
+        return z, np.zeros(T, dtype=bool), z
+
+    # parabolic interpolation shifts (on the full cmnd grid, last column
+    # edge-replicated so the band's right neighbor always exists)
+    cmnd_ext = np.concatenate([cmnd, cmnd[:, -1:]], axis=1)
+    a = cmnd_ext[:, min_period - 1 : max_period]
+    b = yin_band
+    c = cmnd_ext[:, min_period + 1 : max_period + 2]
+    den = a - 2 * b + c
+    shifts = np.where(np.abs(den) > 1e-12, 0.5 * (a - c) / np.where(np.abs(den) > 1e-12, den, 1.0), 0.0)
+    shifts = np.clip(shifts, -0.5, 0.5)
+
+    # local minima (troughs) along the lag axis
+    is_trough = np.ones_like(yin_band, dtype=bool)
+    is_trough[:, 1:] &= yin_band[:, 1:] < yin_band[:, :-1]
+    is_trough[:, :-1] &= yin_band[:, :-1] <= yin_band[:, 1:]
+
+    # trough probabilities from the threshold prior (beta) × rank prior
+    # (Boltzmann), plus the no-trough mass on the global minimum
+    thresholds = np.linspace(0.0, 1.0, n_thresholds + 1)
+    beta_probs = np.diff(_beta_cdf(thresholds, *beta_parameters))  # [n_thresholds]
+
+    n_bins_per_semitone = int(np.round(1.0 / resolution))
+    n_pitch_bins = int(np.floor(12 * n_bins_per_semitone * np.log2(fmax / fmin))) + 1
+    observation = np.zeros((T, 2 * n_pitch_bins))
+    voiced_prob = np.zeros(T)
+
+    lam = boltzmann_parameter
+    for t in range(T):
+        idx = np.flatnonzero(is_trough[t])
+        if idx.size == 0:
+            continue
+        vals = yin_band[t, idx]
+        # rank of each trough among those below each threshold
+        below = vals[:, None] < thresholds[None, 1:]  # [K, n_thresholds]
+        probs = np.zeros(idx.size)
+        counts = below.sum(axis=0)  # troughs below each threshold
+        ranks = np.cumsum(below, axis=0) - 1  # rank per trough per threshold
+        for j in np.flatnonzero(counts):
+            n = counts[j]
+            w = np.exp(-lam * np.arange(n))
+            w = w / w.sum()
+            sel = below[:, j]
+            probs[sel] += beta_probs[j] * w[ranks[sel, j]]
+        # thresholds with no trough below: global-min trough absorbs a little
+        empty_mass = beta_probs[counts == 0].sum()
+        probs[np.argmin(vals)] += no_trough_prob * empty_mass
+        # candidate frequencies → pitch bins
+        periods = (min_period + idx + shifts[t, idx]).astype(np.float64)
+        freqs = sr / np.maximum(periods, 1e-9)
+        ok = (freqs >= fmin) & (freqs <= fmax)
+        if not np.any(ok):
+            continue
+        bins = np.clip(
+            np.round(12 * n_bins_per_semitone * np.log2(freqs[ok] / fmin)).astype(int),
+            0,
+            n_pitch_bins - 1,
+        )
+        np.add.at(observation[t], bins, probs[ok])
+        voiced_prob[t] = min(observation[t, :n_pitch_bins].sum(), 1.0)
+
+    observation[:, n_pitch_bins:] = (1.0 - voiced_prob[:, None]) / n_pitch_bins
+
+    # --- banded Viterbi over (voiced, unvoiced) × pitch-bin states
+    hop_time = hop_length / sr
+    max_trans = max(int(round(12 * n_bins_per_semitone * max_transition_rate * hop_time)), 1)
+    half = max_trans
+    tri = 1.0 - np.abs(np.arange(-half, half + 1)) / (half + 1)  # triangular weights
+    tri = tri / tri.sum()
+    log_tri = np.log(np.maximum(tri, 1e-30))
+    log_sw, log_st = np.log(switch_prob), np.log1p(-switch_prob)
+    log_obs = np.log(np.maximum(observation, 1e-30))
+
+    B = n_pitch_bins
+    NEG = -1e30
+
+    def banded_max(prev):
+        """max_k prev[k] + log_tri[k - bin + half]  (and the argmax k)."""
+        padded = np.full(B + 2 * half, NEG)
+        padded[half : half + B] = prev
+        win = np.lib.stride_tricks.sliding_window_view(padded, 2 * half + 1)  # [B, 2h+1]
+        scores = win + log_tri[None, :]
+        arg = np.argmax(scores, axis=1)
+        return scores[np.arange(B), arg], arg + np.arange(B) - half
+
+    v = log_obs[0, :B] - np.log(2 * B)
+    u = log_obs[0, B:] - np.log(2 * B)
+    back_v = np.zeros((T, B), dtype=np.int32)  # packed: k + B if from unvoiced
+    back_u = np.zeros((T, B), dtype=np.int32)
+    for t in range(1, T):
+        bv, av = banded_max(v)
+        bu, au = banded_max(u)
+        from_v, from_u = bv + log_st, bu + log_sw
+        new_v = np.where(from_v >= from_u, from_v, from_u) + log_obs[t, :B]
+        back_v[t] = np.where(from_v >= from_u, av, au + B)
+        from_v2, from_u2 = bv + log_sw, bu + log_st
+        new_u = np.where(from_v2 >= from_u2, from_v2, from_u2) + log_obs[t, B:]
+        back_u[t] = np.where(from_v2 >= from_u2, av, au + B)
+        v, u = new_v, new_u
+
+    # backtrace
+    states = np.zeros(T, dtype=np.int32)
+    last_v, last_u = int(np.argmax(v)), int(np.argmax(u))
+    states[-1] = last_v if v[last_v] >= u[last_u] else last_u + B
+    for t in range(T - 1, 0, -1):
+        s = states[t]
+        states[t - 1] = back_v[t, s] if s < B else back_u[t, s - B]
+
+    voiced_flag = states < B
+    bins = np.where(voiced_flag, states, states - B)
+    f0 = (fmin * 2.0 ** (bins / (12.0 * n_bins_per_semitone))).astype(np.float32)
+    return f0, voiced_flag, voiced_prob.astype(np.float32)
+
+
+def compute_f0(
+    *,
+    x: np.ndarray = None,
+    pitch_fmax: float = None,
+    pitch_fmin: float = None,
+    hop_length: int = None,
+    win_length: int = None,
+    sample_rate: int = None,
+    stft_pad_mode: str = "reflect",
+    center: bool = True,
+    **kwargs,
+) -> np.ndarray:
+    """Frame-level F0 `[T_frames]`, 0 on the frames pyin's Viterbi path
+    calls unvoiced (`tpu_tts/audio/numpy_transforms.py::compute_f0`)."""
+    assert pitch_fmax is not None, " [!] Set `pitch_fmax` before calling `compute_f0`."
+    assert pitch_fmin is not None, " [!] Set `pitch_fmin` before calling `compute_f0`."
+    f0, voiced_mask, _ = pyin(
+        np.asarray(x, dtype=np.float64),
+        fmin=max(pitch_fmin, 1e-2),
+        fmax=pitch_fmax,
+        sr=sample_rate,
+        frame_length=win_length,
+        win_length=win_length // 2,
+        hop_length=hop_length,
+        center=center,
+        pad_mode=stft_pad_mode,
+    )
+    f0[~voiced_mask] = 0.0
+    return f0
 
 
 # ---------------------------------------------------------------------------

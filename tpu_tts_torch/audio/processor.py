@@ -3,14 +3,14 @@
 Counterpart of `tpu_tts/audio/processor.py` (`StandardScaler`:17,
 `AudioProcessor`:42, `normalize`/`denormalize`:158-198, `load_stats`/
 `setup_scaler`:201-222, `inv_spectrogram`/`inv_melspectrogram`:259-282,
-`melspectrogram`:249, `find_endpoint`/`trim_silence`
+`melspectrogram`:249, `compute_f0`:290, `find_endpoint`/`trim_silence`
 :308-326, `sound_norm`/`rms_volume_norm`:328-335, `load_wav`:337,
 `save_wav`:345), which follows Coqui TTS `TTS/utils/audio/processor.py`.
 Built on the port's `numpy_transforms`; everything here runs on the host in
 numpy, as in the JAX package. Griffin-Lim takes an optional `seed` (an int
 or a `np.random.Generator`) for its first phases; the JAX processor never
-passes one. The f0, energy and quantisation helpers come with the models
-that read them (ROADMAP.md, M8 and M9b).
+passes one. The energy and quantisation helpers come with the models that
+read them (ROADMAP.md, M8 and M9b).
 """
 
 from typing import Dict, Optional, Tuple, Union
@@ -252,6 +252,15 @@ class AudioProcessor:
         if self.do_amp_to_db_mel:
             S = nt.amp_to_db(x=S, gain=self.spec_gain, base=self.base)
         return self.normalize(S).astype(np.float32)
+
+    def compute_f0(self, x: np.ndarray) -> np.ndarray:
+        """pyin F0 `[T_mel]` of a waveform, 0 where unvoiced; a length that is
+        a multiple of the hop is padded by hop/2 first, as `tpu_tts`'s."""
+        if len(x) % self.hop_length == 0:
+            x = np.pad(x, (0, self.hop_length // 2), mode=self.stft_pad_mode)
+        return nt.compute_f0(x=x, pitch_fmax=self.pitch_fmax, pitch_fmin=self.pitch_fmin, hop_length=self.hop_length,
+                             win_length=self.win_length, sample_rate=self.sample_rate,
+                             stft_pad_mode=self.stft_pad_mode, center=True)
 
     # ---- silence and volume ----------------------------------------------------------
     def find_endpoint(self, wav: np.ndarray, min_silence_sec=0.8) -> int:

@@ -32,13 +32,15 @@ from tpu_tts_torch.audio.numpy_transforms import _pad_window, get_window, mel_fi
 
 def wav_to_spec(y: torch.Tensor, *, fft_size: int, hop_length: int, win_length: int,
                 center: bool = False) -> torch.Tensor:
-    """Linear magnitude spectrogram: `[B, T] → [B, fft_size//2 + 1, T_spec]`."""
+    """Linear magnitude spectrogram: `[B, T] → [B, fft_size//2 + 1, T_spec]`,
+    in float32 (float64 for a float64 signal)."""
     if not center:
         pad = (fft_size - hop_length) // 2
         y = F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
-    window = torch.from_numpy(_pad_window(get_window("hann", win_length), fft_size).astype(np.float32))
-    spec = torch.stft(y.float(), fft_size, hop_length=hop_length, win_length=fft_size,
-                      window=window.to(y.device), center=center, pad_mode="reflect", return_complex=True)
+    y = y if y.dtype == torch.float64 else y.float()
+    window = torch.from_numpy(_pad_window(get_window("hann", win_length), fft_size))
+    spec = torch.stft(y, fft_size, hop_length=hop_length, win_length=fft_size,
+                      window=window.to(y.device, y.dtype), center=center, pad_mode="reflect", return_complex=True)
     return torch.sqrt(spec.real**2 + spec.imag**2 + 1e-6)
 
 
@@ -47,7 +49,7 @@ def spec_to_mel(spec: torch.Tensor, *, fft_size: int, num_mels: int, sample_rate
     """`[B, C, T] → [B, num_mels, T]` log-mel."""
     basis = mel_filterbank(sample_rate=sample_rate, fft_size=fft_size, num_mels=num_mels, mel_fmin=fmin,
                            mel_fmax=fmax)
-    mel = torch.matmul(torch.from_numpy(basis).to(spec.device), spec)
+    mel = torch.matmul(torch.from_numpy(basis).to(spec.device, spec.dtype), spec)
     return torch.log(torch.clamp(mel, min=1e-5))
 
 

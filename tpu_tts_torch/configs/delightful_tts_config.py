@@ -9,10 +9,15 @@ Counterpart of `tpu_tts/configs/delightful_tts_config.py` (`VocoderConfig`
 a config builds no model. A `config.json` that `tpu_tts` writes loads
 through `tpu_tts_torch.config.load_config`.
 
-Only the fields inference reads are here: the model's widths, the decoder,
-the audio and the speakers. The training settings (optimizers, schedulers,
-loss weights, discriminator, data loader) come with the training slice;
-`Coqpit.from_dict` passes over them in a `config.json` that holds them.
+Only the fields the port reads are here: the model's widths, the decoder,
+the audio and the speakers; the segment size, the discriminator, the two
+optimizers and their schedulers, the loss weights that `loss_fn` reads and
+the data loader's fields (`tpu_tts/configs/delightful_tts_config.py`
+:51-105). `tpu_tts` never reads `init_discriminator`,
+`steps_to_start_discriminator`, `ssim_loss_alpha`, `char_dur_loss_alpha` or
+`binary_loss_warmup_epochs` for DelightfulTTS (ROADMAP.md, F19), so the
+port leaves them out; `Coqpit.from_dict` passes over them, and over any
+other field the port does not hold, in a `config.json` that has them.
 """
 
 from dataclasses import dataclass, field
@@ -27,6 +32,7 @@ from tpu_tts_torch.configs.shared_configs import BaseTTSConfig
 @dataclass
 class DelightfulTtsArgs(Coqpit):
     num_chars: int = 100
+    spec_segment_size: int = 32  # mel frames of the decoder's training window
     # conformer encoder / decoder
     n_hidden_conformer_encoder: int = 512
     n_layers_conformer_encoder: int = 6
@@ -74,6 +80,9 @@ class VocoderConfig(Coqpit):
     upsample_rates_decoder: List[int] = field(default_factory=lambda: [8, 8, 2, 2])
     upsample_initial_channel_decoder: int = 512
     upsample_kernel_sizes_decoder: List[int] = field(default_factory=lambda: [16, 16, 4, 4])
+    # the training discriminator (VITS's): a scale and one period discriminator a period
+    use_spectral_norm_discriminator: bool = False
+    periods_discriminator: List[int] = field(default_factory=lambda: [2, 3, 5, 7, 11])
 
 
 def _delightful_audio() -> BaseAudioConfig:
@@ -96,7 +105,49 @@ class DelightfulTTSConfig(BaseTTSConfig):
     model: str = "delightful_tts"
     audio: BaseAudioConfig = field(default_factory=_delightful_audio)
     model_args: DelightfulTtsArgs = field(default_factory=DelightfulTtsArgs)
+    use_attn_priors: bool = True
     vocoder: VocoderConfig = field(default_factory=VocoderConfig)
+
+    # optimizers: the discriminator's (0) and the generator's (1)
+    grad_clip: float = 1000.0
+    lr_gen: float = 0.0002
+    lr_disc: float = 0.0002
+    lr_scheduler_gen: str = "exponential"
+    lr_scheduler_gen_params: dict = field(default_factory=lambda: {"gamma": 0.999875, "last_epoch": -1})
+    lr_scheduler_disc: str = "exponential"
+    lr_scheduler_disc_params: dict = field(default_factory=lambda: {"gamma": 0.999875, "last_epoch": -1})
+    optimizer: str = "adamw"
+    optimizer_params: dict = field(default_factory=lambda: {"betas": [0.8, 0.99], "eps": 1e-9, "weight_decay": 0.01})
+
+    # acoustic model losses
+    mel_loss_alpha: float = 1.0
+    aligner_loss_alpha: float = 1.0
+    pitch_loss_alpha: float = 1.0
+    energy_loss_alpha: float = 1.0
+    u_prosody_loss_alpha: float = 0.5
+    p_prosody_loss_alpha: float = 0.5
+    dur_loss_alpha: float = 1.0
+    binary_align_loss_alpha: float = 0.1
+
+    # vocoder losses
+    disc_loss_alpha: float = 1.0
+    gen_loss_alpha: float = 1.0
+    feat_loss_alpha: float = 1.0
+    vocoder_mel_loss_alpha: float = 10.0
+    multi_scale_stft_loss_alpha: float = 2.5
+    multi_scale_stft_loss_params: dict = field(
+        default_factory=lambda: {
+            "n_ffts": [1024, 2048, 512],
+            "hop_lengths": [120, 240, 50],
+            "win_lengths": [600, 1200, 240],
+        }
+    )
+
+    # data loader
+    return_wav: bool = True
+    compute_f0: bool = True
+    f0_cache_path: Optional[str] = None
+    attn_prior_cache_path: Optional[str] = None
 
     # multi-speaker
     num_speakers: int = 0

@@ -9,9 +9,13 @@ adds per-row `speaker_ids`, `d_vectors` (each speaker's first d-vector) and
 `language_ids` (`:330-340`); with sample `weights` (the speaker, language
 and length balancers) the loader draws each epoch's items with replacement
 in proportion to them, from the epoch's seeded generator, and sorts them
-so that batches keep the length sorting. The linear spectrograms, pitch,
-energy and aligner priors of the other acoustic models come with them
-(ROADMAP.md, M9b); VITS computes its spectrograms on the device.
+so that batches keep the length sorting. With `compute_f0` each item
+carries its pyin F0 (`ap.compute_f0`, cached as .npy under `f0_cache_path`)
+and the collate a `pitch` `[B, T_mel]` (`:321-328`); with `use_attn_prior`
+an `attn_priors` `[B, T_mel, T_text]` of each row's beta-binomial prior on
+its token and mel counts (`:307-319`, cached under `attn_prior_cache_path`).
+The linear spectrograms and energy of the other acoustic models come with
+them (ROADMAP.md, M9b); VITS computes its spectrograms on the device.
 
 One divergence: the loader seeds each epoch's shuffle from (seed, epoch),
 `set_epoch` as torch's samplers have it, where the JAX loader carries one
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from tpu_tts_torch.data import get_audio_size, prefetch_batches
+from tpu_tts_torch.ops.helpers import compute_attn_prior
 
 
 def _bucket(n: int, step: int) -> int:
@@ -79,6 +84,10 @@ class TTSDataset:
         samples: Optional[List[Dict]] = None,
         tokenizer=None,
         return_wav: bool = False,
+        compute_f0: bool = False,
+        f0_cache_path: Optional[str] = None,
+        use_attn_prior: bool = False,
+        attn_prior_cache_path: Optional[str] = None,
         batch_group_size: int = 0,
         min_text_len: int = 0,
         max_text_len: float = float("inf"),
@@ -97,6 +106,8 @@ class TTSDataset:
         self.samples = samples or []
         self.outputs_per_step = outputs_per_step
         self.return_wav = return_wav
+        self.compute_f0 = compute_f0
+        self.use_attn_prior = use_attn_prior
         self.batch_group_size = batch_group_size
         self.min_audio_len = min_audio_len
         self.max_audio_len = max_audio_len
@@ -114,6 +125,8 @@ class TTSDataset:
         self.language_id_mapping = language_id_mapping
         self.rescue_item_idx = 1
         self.phoneme_cache = FeatureCache(phoneme_cache_path, "_phoneme.npy")
+        self.f0_cache = FeatureCache(f0_cache_path, "_f0.npy")
+        self.attn_prior_cache = FeatureCache(attn_prior_cache_path, "_attn_prior.npy")
         self._token_cache: Dict[int, np.ndarray] = {}
 
     def __len__(self):
@@ -142,10 +155,14 @@ class TTSDataset:
             return self.load_item(self.rescue_item_idx)
         if self.use_noise_augment:
             wav = noise_augment_audio(wav)
+        f0 = None
+        if self.compute_f0:
+            f0 = self.f0_cache.get(item["audio_unique_name"], lambda: self.ap.compute_f0(wav).astype(np.float32))
         return {
             "raw_text": item["text"],
             "token_ids": self.get_token_ids(idx, item["text"]),
             "wav": wav,
+            "pitch": f0,
             "item_idx": item["audio_file"],
             "speaker_name": item.get("speaker_name"),
             "language_name": item.get("language"),
@@ -184,8 +201,9 @@ class TTSDataset:
     def collate_fn(self, batch: List[Dict]) -> Dict:
         """Pad to bucketed shapes; the keys of the JAX collate (Coqui's
         `format_batch` names): text_input, text_lengths, mel_input,
-        mel_lengths, stop_targets, and with `return_wav` waveform
-        `[B, 1, T_mel · hop]` and waveform_lengths."""
+        mel_lengths, stop_targets, with `return_wav` waveform
+        `[B, 1, T_mel · hop]` and waveform_lengths, with `use_attn_prior`
+        attn_priors and with `compute_f0` pitch."""
         B = len(batch)
         token_lens = np.array([len(d["token_ids"]) for d in batch], dtype=np.int32)
         mels = [self.ap.melspectrogram(d["wav"]).astype(np.float32).T for d in batch]  # [T, C]
@@ -226,6 +244,19 @@ class TTSDataset:
                 waveform[i, 0, : len(w)] = w
             out["waveform"] = torch.from_numpy(waveform)
             out["waveform_lengths"] = torch.from_numpy(np.minimum(wav_lens, T_wav))
+        if self.use_attn_prior:
+            priors = np.zeros((B, T_mel, T_text), dtype=np.float32)
+            for i, d in enumerate(batch):
+                pr = self.attn_prior_cache.get(d["audio_unique_name"], lambda: compute_attn_prior(
+                    int(token_lens[i]), int(mel_lens[i])).astype(np.float32))
+                priors[i, : pr.shape[0], : pr.shape[1]] = pr[:T_mel, :T_text]
+            out["attn_priors"] = torch.from_numpy(priors)
+        if batch[0]["pitch"] is not None:
+            pitch = np.zeros((B, T_mel), dtype=np.float32)
+            for i, d in enumerate(batch):
+                f = d["pitch"][:T_mel]
+                pitch[i, : len(f)] = f
+            out["pitch"] = torch.from_numpy(pitch)
         if self.speaker_id_mapping:
             out["speaker_ids"] = torch.tensor([self.speaker_id_mapping[d["speaker_name"]] for d in batch])
         if self.d_vector_mapping:

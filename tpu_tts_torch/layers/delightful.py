@@ -27,7 +27,8 @@ What the flax modules fix and the port keeps:
 - the reference encoder's GRU runs over the whole padded sequence (no
   packing) and its final state is read at `out_lens − 1`; torch's GRU
   computes flax's `GRUCell` once `bias_hh` holds zeros for r and z
-  (`vocoder/models/wavernn_convert.py::gru_from_flax`).
+  (`vocoder/models/wavernn_convert.py::gru_from_flax`), and a hook zeroes
+  their gradient, so training keeps them at 0.
 Dropout acts in `train()` mode only, as the flax modules' under
 `train=True`.
 """
@@ -325,6 +326,12 @@ class Conformer(nn.Module):
 # --------------------------------------------------------------------------- prosody reference encoders
 
 
+def _zero_rz_grad(grad):
+    """A GRU `bias_hh`'s gradient with its r and z thirds zeroed."""
+    n = grad.shape[0] // 3
+    return torch.cat([torch.zeros_like(grad[: 2 * n]), grad[2 * n:]])
+
+
 class ReferenceEncoder(nn.Module):
     """Mel reference encoder: a coordinate conv and strided convs (each with a
     leaky ReLU and an instance norm), then a GRU. Returns (outputs
@@ -345,6 +352,11 @@ class ReferenceEncoder(nn.Module):
             self.add_module(f"conv_{i}", conv)
             self.add_module(f"norm_{i}", InstanceNorm1dAffine(filters[i]))
         self.gru = nn.GRU(filters[-1], ref_enc_gru_size, batch_first=True)
+        # flax's GRUCell has no hidden-side bias for r and z: those entries of
+        # bias_hh hold 0 and get no gradient, so training moves what JAX moves
+        with torch.no_grad():
+            self.gru.bias_hh_l0[: 2 * ref_enc_gru_size].zero_()
+        self.gru.bias_hh_l0.register_hook(_zero_rz_grad)
 
     def forward(self, mels, mel_lens):
         """mels `[B, T, num_mels]`, mel_lens `[B]`."""
@@ -357,7 +369,12 @@ class ReferenceEncoder(nn.Module):
             if s > 1:
                 out_lens = torch.div(out_lens + s - 1, s, rounding_mode="floor")
         x = x * sequence_mask(out_lens, x.shape[1]).to(x.dtype)[:, :, None]
-        outputs, _ = self.gru(x)
+        dtype = torch.promote_types(x.dtype, self.gru.weight_ih_l0.dtype)
+        if x.dtype == dtype == self.gru.weight_ih_l0.dtype:
+            outputs, _ = self.gru(x)
+        else:  # bfloat16 weights and a float32 input (mixed precision): float32, as flax promotes
+            weights = {n: p.to(dtype) for n, p in self.gru.named_parameters()}
+            outputs, _ = torch.func.functional_call(self.gru, weights, (x.to(dtype),))
         idx = (out_lens - 1).clamp(0, x.shape[1] - 1).long()
         final = outputs[torch.arange(x.shape[0], device=x.device), idx]
         return outputs, final, out_lens

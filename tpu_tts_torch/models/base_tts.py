@@ -56,12 +56,14 @@ class BaseTTSModel:
     def get_data_loader(self, config, assets, is_eval: bool, samples, verbose: bool, num_gpus: int = 1,
                         rank: int = 0):
         """A `TTSDataLoader` over `samples`, length-filtered and sorted, with
-        the speaker, language and d-vector maps and the balancers' weights."""
+        the speaker, language and d-vector maps, the balancers' weights, and
+        the pitch (`compute_f0`) and aligner priors (`use_attn_priors`) a
+        config asks for."""
         from tpu_tts_torch.data.dataset import TTSDataLoader, TTSDataset
 
         if num_gpus > 1:
             raise NotImplementedError("per-process data sharding comes with the data-parallel trainer (ROADMAP.md, M10)")
-        for key in ("compute_linear_spec", "compute_f0", "compute_energy", "use_attn_priors"):
+        for key in ("compute_linear_spec", "compute_energy"):
             if getattr(config, key, False):
                 raise NotImplementedError(f"`{key}` comes with the models that read it (ROADMAP.md, M9b)")
         dataset = TTSDataset(
@@ -69,6 +71,10 @@ class BaseTTSModel:
             samples=samples,
             ap=self.ap,
             return_wav=getattr(config, "return_wav", False),
+            compute_f0=getattr(config, "compute_f0", False),
+            f0_cache_path=getattr(config, "f0_cache_path", None),
+            use_attn_prior=getattr(config, "use_attn_priors", False),
+            attn_prior_cache_path=getattr(config, "attn_prior_cache_path", None),
             batch_group_size=0 if is_eval else config.batch_group_size * config.batch_size,
             min_text_len=config.min_text_len,
             max_text_len=config.max_text_len,

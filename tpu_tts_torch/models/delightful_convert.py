@@ -1,5 +1,9 @@
 """JAX DelightfulTTS params → the port's `state_dict`.
 
+`training_params_from_flax({"generator", "discriminator"})` takes the whole
+training tree of `tpu_tts`'s `DelightfulTTS` and returns what
+`DelightfulTTS.load_training_state` takes: the generator's entries and the
+VITS discriminator's under `disc.` (`vits_convert.disc_params_from_flax`).
 `params_from_flax(tree)` takes the `generator` tree of `tpu_tts`'s
 `DelightfulTTS` (`DelightfulNet` params: `acoustic_model`,
 `waveform_decoder`) as a nested dict of numpy arrays and returns what
@@ -15,8 +19,9 @@ names, so the acoustic model's paths only change `/` to `.`; its leaves:
   the cell in the encoder's scope) → `gru`, through the WaveRNN bridge's
   `gru_from_flax`.
 
-The aligner (`acoustic_model/aligner`) is read by training only and is
-left out. The decoder goes through the VITS bridge's HiFi-GAN rules
+The aligner's convs (`acoustic_model/aligner`, flax `Conv1d`s: a Dense
+`conv` at kernel size 1) follow the same two kernel rules. The decoder goes
+through the VITS bridge's HiFi-GAN rules
 (`vits_convert.params_from_flax`).
 """
 
@@ -37,8 +42,6 @@ def acoustic_params_from_flax(tree) -> Dict[str, np.ndarray]:
 
     def walk(node, path):
         for k, v in node.items():
-            if k == "aligner" and not path:
-                continue
             if k == "GRUCell_0":
                 sd.update({f"{path}.gru.{n}": w for n, w in gru_from_flax(v).items()})
                 continue
@@ -61,4 +64,12 @@ def params_from_flax(tree) -> Dict[str, torch.Tensor]:
     sd = {f"acoustic_model.{k}": torch.from_numpy(np.ascontiguousarray(v))
           for k, v in acoustic_params_from_flax(tree["acoustic_model"]).items()}
     sd.update(vits_convert.params_from_flax({"waveform_decoder": tree["waveform_decoder"]}))
+    return sd
+
+
+def training_params_from_flax(params, periods) -> Dict[str, torch.Tensor]:
+    """JAX `{"generator", "discriminator"}` → `DelightfulTTS.load_training_state`'s
+    dict; `periods` are the discriminator's (`vocoder.periods_discriminator`)."""
+    sd = params_from_flax(params["generator"])
+    sd.update({f"disc.{k}": v for k, v in vits_convert.disc_params_from_flax(params["discriminator"], periods).items()})
     return sd

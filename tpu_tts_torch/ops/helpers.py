@@ -1,13 +1,16 @@
 """Sequence ops of the inference path.
 
 Counterparts of `tpu_tts/ops/helpers.py` (`sequence_mask`:16, `segment`:22,
-`rand_segments`:33, `generate_path`:58, `average_over_durations`:71) and `tpu_tts/utils/generic_utils.py`
-(`bucket_len`:56). `generate_path` keeps the JAX layout: durations
-`[B, T_en]`, mask and path `[B, T_en, T_de]`.
+`rand_segments`:33, `generate_path`:58, `average_over_durations`:71,
+`beta_binomial_prior_distribution`:101, `compute_attn_prior`:114) and
+`tpu_tts/utils/generic_utils.py` (`bucket_len`:56). `generate_path` keeps
+the JAX layout: durations `[B, T_en]`, mask and path `[B, T_en, T_de]`.
+The aligner's prior is host-side numpy, as in JAX.
 """
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -84,3 +87,19 @@ def bucket_len(n: int, grid: int, cap: int = None) -> int:
     if cap is not None:
         b = min(b, max(cap, n))
     return b
+
+
+def beta_binomial_prior_distribution(phoneme_count: int, mel_count: int, scaling_factor: float = 1.0) -> np.ndarray:
+    """The beta-binomial alignment prior `[mel_count, phoneme_count]`: row i
+    (1-based) is BetaBinom(P, c·i, c·(M + 1 − i)) over the P tokens, all
+    rows in one scipy call (`tpu_tts` freezes one distribution a row)."""
+    from scipy.stats import betabinom
+
+    i = np.arange(1, mel_count + 1, dtype=np.float64)[:, None]
+    return betabinom.pmf(np.arange(phoneme_count)[None, :], phoneme_count, scaling_factor * i,
+                         scaling_factor * (mel_count + 1 - i))
+
+
+def compute_attn_prior(x_len: int, y_len: int, scaling_factor: float = 1.0) -> np.ndarray:
+    """`[y_len, x_len]` prior of the aligner's attention (`use_attn_priors`)."""
+    return beta_binomial_prior_distribution(x_len, y_len, scaling_factor)

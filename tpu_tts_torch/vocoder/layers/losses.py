@@ -23,11 +23,7 @@ import torch
 from tpu_tts_torch.audio import torch_transforms as tt
 from tpu_tts_torch.audio.numpy_transforms import _pad_window, get_window
 from tpu_tts_torch.layers.common import reflect_pad
-
-
-def _wide(x: torch.Tensor) -> torch.Tensor:
-    """x in float32, or float64 if it is (bfloat16 scores and features are read in float32)."""
-    return x if x.dtype == torch.float64 else x.float()
+from tpu_tts_torch.layers.losses import wide as _wide  # bfloat16 scores and features are read in float32
 
 
 def _flat(y: torch.Tensor) -> torch.Tensor:
