@@ -210,6 +210,28 @@ result line:
    directory served by `/api/tts` through K1, 72 launches, within 1e-3 of
    the plain MRF, at most half its samples saturated (`delightful train
    serve`);
+19b. the ForwardTTS family behind HiFi-GAN (K1 on a new path): the default
+   FastPitch (384 wide, 6 + 6 FFT layers, ≈ 37 M parameters, printed) with
+   weights from a seed behind the default HiFi-GAN V1 (its generator alone
+   at unit gain) over the three `/api/tts` requests on the locked path: 72
+   K1 launches a sentence, replies of n_frames · hop samples, a profile of
+   the 78-character request, each served waveform within 1e-3 of the plain
+   MRF (`forward fast_pitch waveform vs plain MRF` lines); one request each
+   of the default FastSpeech, FastSpeech2 and SpeedySpeech (the last read
+   from a Coqui-keyed state dict, so with `frozen_batch`) and of a 4-speaker
+   FastPitch, 72 launches each, within 1e-3 of the plain MRF, two speakers
+   giving other waveforms (`forward ... request` lines); the tiny FastPitch
+   and SpeedySpeech `loss_fn` steps on the card against the CPU, float32
+   and float64 (losses, MAS durations, float64 gradients and BatchNorm
+   statistics; `forward train card vs cpu`); the default FastPitch at the
+   LJSpeech recipe's settings (batch 32, mixed precision, pyin F0 cached)
+   on 32 + 4 seeded clips of 2–6 s through `Trainer.fit` for 2 steps: ms a
+   step, peak memory, finite losses, every gradient nonzero, K1 launched no
+   time (`forward train steps`); one more epoch against the same epoch
+   resumed (`forward train resume`); a profiled step; 5 steps on one batch
+   at a constant lr of 1e-3 lowering the spec loss (`forward train overfit`); the run directory
+   behind the vocoder through `/api/tts`: 72 launches, within 1e-3 of the
+   plain MRF (`forward train serve request`);
 20. the kernels line, then `{"ok": true, "device": {...}}` as the last line.
 
 Each serving phase's requests are a main path: the launch counts are set to
@@ -1703,9 +1725,15 @@ class TrainProbe:
 
         orig_step = trainer.train_step
 
+        hop = trainer.model.config.audio.hop_length
+
         def train_step(batch):
-            samples = batch["waveform_lengths"].sum() if "waveform_lengths" in batch else batch["waveform"].numel()
-            self.cur = {"events": {}, "logs": {}, "clips": int(batch["waveform"].shape[0]),
+            if "waveform" in batch:
+                samples = batch["waveform_lengths"].sum() if "waveform_lengths" in batch else batch["waveform"].numel()
+            else:  # a mel model's batch: its frames
+                samples = batch["mel_lengths"].sum() * hop
+            self.cur = {"events": {}, "logs": {}, "clips": int(batch["text_input"].shape[0] if "text_input" in batch
+                                                              else batch["waveform"].shape[0]),
                         "audio_s": float(samples) / self.sr}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1748,6 +1776,9 @@ class TrainProbe:
     def step_ms(self, step: dict) -> dict:
         ev = step["events"]
         ms = lambda a, b: ev[a].elapsed_time(ev[b])  # noqa: E731
+        if "loss1" not in ev:  # one optimizer
+            return {"substep_ms": ms("loss0", "opt0_start"), "optimizer_ms": ms("opt0_start", "opt0_end"),
+                    "step_ms": ms("loss0", "opt0_end"), "wall_ms": step["wall_s"] * 1e3}
         return {"d_substep_ms": ms("loss0", "opt0_start"), "g_substep_ms": ms("loss1", "opt1_start"),
                 "optimizer_ms": ms("opt0_start", "opt0_end") + ms("opt1_start", "opt1_end"),
                 "step_ms": ms("loss0", "opt1_end"), "wall_ms": step["wall_s"] * 1e3}
@@ -2692,7 +2723,8 @@ def fit_and_probe(config, train_samples, eval_samples, out: str, device: str = "
            **{k: sum(t[k] for t in timed) / len(timed) for k in timed[0]},
            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 2**30, "hifigan_mrf_launches": launches,
            "losses_first": TrainProbe.losses(steps[0]), "losses_last": TrainProbe.losses(steps[-1]),
-           "param_dtypes": sorted({str(p.dtype) for p in list(model.net.parameters()) + list(model.disc.parameters())}),
+           "param_dtypes": sorted({str(p.dtype) for part in (model.net, getattr(model, "disc", None))
+                                   if part is not None for p in part.parameters()}),
            "optimizer_state_dtypes": sorted({str(v.dtype) for opt in trainer.optimizers
                                              for st in opt.inner.state.values() for v in st.values()
                                              if torch.is_tensor(v)})}
@@ -3190,11 +3222,11 @@ def check_mrf_kernel_narrow() -> list:
     return rows
 
 
-def save_gan_vocoder(tmp: str, name: str, config=None, device: str = "cuda") -> dict:
+def save_gan_vocoder(tmp: str, name: str, config=None, device: str = "cuda", discriminator: bool = True) -> dict:
     """A GAN vocoder (the default config of class `name` unless `config` is
     given) with weights from SEED, a HiFi-GAN generator at unit gain, saved
-    as a Coqui-format `.pth` (`{"model": ...}` with `model_g.*` and
-    `model_d.*`) beside its `config.json`."""
+    as a Coqui-format `.pth` (`{"model": ...}` with `model_g.*`, and with
+    `discriminator` `model_d.*`) beside its `config.json`."""
     import torch
 
     from tpu_tts_torch.vocoder import configs
@@ -3202,7 +3234,7 @@ def save_gan_vocoder(tmp: str, name: str, config=None, device: str = "cuda") -> 
 
     torch.manual_seed(SEED)
     config = getattr(configs, name)() if config is None else config
-    model = setup_model(config, device=device)
+    model = setup_model(config, device=device, discriminator=discriminator)
     if config.generator_model == "hifigan_generator":
         unit_gain_decoder(model.model_g)
     stem = os.path.join(tmp, name.replace("Config", "").lower())
@@ -3540,11 +3572,12 @@ def save_delightful(tmp: str, device: str = "cuda", speakers: bool = False) -> d
     return {**paths, "params": params}
 
 
-def check_delightful_against_plain(synth, texts, speaker: str = "", tol: float = 1e-3) -> float:
+def check_against_plain_mrf(synth, texts, label: str, speaker: str = "", tol: float = 1e-3) -> float:
     """Each of `texts` through `Synthesizer.tts` with K1 against the same
-    model with the plain MRF version (float32, TF32 off): the largest
-    difference of a served waveform. Fails on a waveform that is near
-    silent or mostly saturated, where the comparison would show little."""
+    models with the plain MRF version (float32, TF32 off): the largest
+    difference of a served waveform (`{label} waveform vs plain MRF`
+    lines). Fails on a waveform that is near silent or mostly saturated,
+    where the comparison would show little."""
     import numpy as np
 
     worst = 0.0
@@ -3555,10 +3588,10 @@ def check_delightful_against_plain(synth, texts, speaker: str = "", tol: float =
         err = float(np.abs(got - ref).max())
         rms = float(np.sqrt(np.mean(ref**2)))
         saturated = float(np.mean(np.abs(ref) > 0.999))
-        log(f"delightful waveform vs plain MRF: chars={len(text)} speaker={speaker or None} samples={got.size} "
+        log(f"{label} waveform vs plain MRF: chars={len(text)} speaker={speaker or None} samples={got.size} "
             f"max_abs_err={err:.3e} (tol {tol:.0e}) rms={rms:.4f} saturated={saturated:.4f}")
         if not np.isfinite(got).all() or err > tol or rms < 1e-3 or saturated > 0.5:
-            raise AssertionError(f"the served DelightfulTTS waveform disagrees with the plain MRF or is silent/"
+            raise AssertionError(f"{label}: the served waveform disagrees with the plain MRF or is silent/"
                                  f"saturated: max_abs_err {err}, rms {rms}, saturated {saturated}")
         worst = max(worst, err)
     return worst
@@ -3587,7 +3620,7 @@ def delightful_phase(tmp: str, device: str = "cuda") -> dict:
     def check_synth(synth):
         # the 78-character request's mel bucket and the decoder's stage shapes
         n_tokens = len(synth.tts_model.tokenizer.text_to_ids(TEXTS[1]))
-        checked.update(max_abs_err=check_delightful_against_plain(synth, TEXTS),
+        checked.update(max_abs_err=check_against_plain_mrf(synth, TEXTS, "delightful"),
                        y_max=bucket_len(n_tokens * DelightfulTTS.FRAMES_PER_TOKEN, 128),
                        ups=np.cumprod(synth.tts_config.vocoder.upsample_rates_decoder))
 
@@ -3615,7 +3648,7 @@ def delightful_phase(tmp: str, device: str = "cuda") -> dict:
     spk_launches = hifigan_mrf.launches
     a, b = wavs["spk_a"], wavs["spk_b"]
     spk_diff = float(np.abs(a - b).max()) if a.size == b.size else None
-    spk_err = check_delightful_against_plain(synth, TEXTS[:1], speaker="spk_c")
+    spk_err = check_against_plain_mrf(synth, TEXTS[:1], "delightful", speaker="spk_c")
     log("delightful speakers " + json.dumps({"launches": spk_launches, "lengths": {k: int(v.size) for k, v in wavs.items()},
                                              "spk_a_vs_spk_b_max_abs_diff": spk_diff, "max_abs_err_vs_plain": spk_err}))
     if not (a.size != b.size or spk_diff > 1e-3):
@@ -3905,6 +3938,363 @@ def delightful_train_phase(tmp: str, device: str = "cuda") -> dict:
             "served": served, "phase_wall_s": wall}
 
 
+# ---------------------------------------------------------------- the ForwardTTS family
+FT_SPEAKERS = {"spk_a": 0, "spk_b": 1, "spk_c": 2, "spk_d": 3}
+FT_TRAIN_CLIPS, FT_TRAIN_EVAL_CLIPS = 32, 4  # one batch of the recipe's 32 an epoch; 2–6 s each
+FT_TRAIN_EPOCHS = 2  # one step each; then one more epoch, resumed and uninterrupted
+FT_OVERFIT_STEPS = 5
+FT_OVERFIT_LR = 1e-3  # a constant rate for the fixed-batch steps
+FT_DURATION_BIAS = 1.6  # the duration head's bias of a seeded model: exp(1.6) − 1 ≈ 4 frames a token
+
+
+def forward_config(name: str, speakers_file: str = None):
+    """The default config of class `name` of the ForwardTTS family (English
+    cleaners, no silence trim, so a reply is its sentences' n_frames · hop
+    samples); with `speakers_file` a `use_speaker_embedding` model of
+    FT_SPEAKERS."""
+    from tpu_tts_torch import configs
+
+    config = getattr(configs, name)(text_cleaner="english_cleaners")
+    config.audio.do_trim_silence = False
+    if speakers_file:
+        config.use_speaker_embedding, config.speakers_file = True, speakers_file
+        config.model_args.use_speaker_embedding, config.model_args.num_speakers = True, len(FT_SPEAKERS)
+    return config
+
+
+def save_forward(tmp: str, name: str, device: str = "cuda", speakers: bool = False, coqui: bool = False) -> dict:
+    """A ForwardTTS model of config class `name` at its default widths with
+    weights from SEED (the duration head's bias FT_DURATION_BIAS), saved as
+    the port's state dict, or with `coqui` under Coqui's key names
+    (`forward_convert.coqui_state_dict`), beside its `config.json`."""
+    import torch
+
+    from tpu_tts_torch.models.forward_convert import coqui_state_dict
+    from tpu_tts_torch.models.forward_tts import ForwardTTS
+
+    stem = os.path.join(tmp, name.replace("Config", "").lower() + ("_spk" if speakers else ""))
+    speakers_file = None
+    if speakers:
+        speakers_file = stem + "_speakers.json"
+        with open(speakers_file, "w", encoding="utf-8") as f:
+            json.dump(FT_SPEAKERS, f)
+    config = forward_config(name, speakers_file)
+    torch.manual_seed(SEED)
+    model = ForwardTTS.init_from_config(config, device=device)
+    with torch.no_grad():
+        model.net.duration_predictor.proj.bias.fill_(FT_DURATION_BIAS)
+    sd = model.net.state_dict()
+    torch.save({"model": coqui_state_dict(sd), "step": 0} if coqui else sd, stem + ".pth")
+    model.config.save_json(stem + ".json")
+    params = sum(p.numel() for p in model.net.parameters())
+    log(f"forward model: {config.model} speakers={len(FT_SPEAKERS) if speakers else 0} params={params} "
+        f"coqui_keys={coqui} encoder={config.model_args.encoder_type} hidden={config.model_args.hidden_channels}")
+    return {"model_path": stem + ".pth", "config_path": stem + ".json", "params": params}
+
+
+def serve_forward_request(paths: dict, label: str, speaker: str = "", device: str = "cuda") -> dict:
+    """One `/api/tts` request of TEXTS[0] (with `speaker`) to a ForwardTTS
+    model behind its vocoder on the locked path: HTTP 200, a WAV of the
+    sentence's n_frames · hop samples, 72 K1 launches; then the waveform
+    through K1 against the plain MRF."""
+    import numpy as np
+    import scipy.io.wavfile
+
+    from tpu_tts_torch.infer.synthesizer import SENTENCE_GAP
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.server.server import TTSHandler, create_server
+
+    server = create_server(argparse.Namespace(**paths, device=device, host="127.0.0.1", port=0))
+    if TTSHandler._batcher is not None:
+        TTSHandler._batcher.close()
+        TTSHandler._batcher = None
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        synth = TTSHandler.synthesizer
+        hifigan_mrf.launches = 0
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(post(f"http://127.0.0.1:{server.server_address[1]}/api/tts", TEXTS[0], speaker),
+                                    timeout=600) as r:
+            status, body = r.status, r.read()
+        latency = time.perf_counter() - t0
+        launches = hifigan_mrf.launches
+        sr, pcm = scipy.io.wavfile.read(io.BytesIO(body))
+        model = synth.tts_model
+        sid = synth.resolve_speaker(speaker)[0] if speaker else None
+        aux = {"speaker_ids": [sid]} if sid is not None else {}
+        frames = int(model.inference(model.tokenizer.text_to_ids(TEXTS[0]), aux_input=aux)["y_lengths"][0])
+        out = {"model": synth.tts_config.model, "speaker": speaker or None, "status": status, "samples": int(pcm.size),
+               "frames": frames, "latency_s": latency, "hifigan_mrf_launches": launches,
+               "max_abs_err_vs_plain": check_against_plain_mrf(synth, TEXTS[:1], label, speaker)}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    log(f"{label} request " + json.dumps(out))
+    if status != 200 or body[:4] != b"RIFF" or pcm.size != frames * model.ap.hop_length + SENTENCE_GAP \
+            or not np.abs(pcm).max() > 0 or launches != 72:
+        raise AssertionError(f"{label}: the request did not serve through K1 as expected: {out}")
+    return out
+
+
+def forward_tiny_config(name: str):
+    """The CPU test's tiny ForwardTTS (`tests/test_torch_port_forward.py`):
+    hidden 32, 20 mels, two FFT layers of two heads (FFN 48) or
+    SpeedySpeech's coders at dilations (1, 2) and (1, 2, 4), predictors 24
+    wide, every dropout 0."""
+    config = forward_config(name)
+    ma = config.model_args
+    ma.hidden_channels, ma.out_channels, config.audio.num_mels = 32, 20, 20
+    ma.encoder_params, ma.decoder_params = dict(ma.encoder_params), dict(ma.decoder_params)
+    if ma.encoder_type == "fftransformer":
+        for p in (ma.encoder_params, ma.decoder_params):
+            p.update(num_layers=2, hidden_channels_ffn=48, num_heads=2, dropout_p=0.0)
+    else:
+        ma.encoder_params["dilations"], ma.decoder_params["dilations"] = [1, 2], [1, 2, 4]
+    for k in ("duration", "pitch", "energy"):
+        setattr(ma, f"{k}_predictor_hidden_channels", 24)
+        setattr(ma, f"{k}_predictor_dropout_p", 0.0)
+    return config
+
+
+def forward_tiny_batch() -> dict:
+    """The CPU test's batch: two rows of 11 and 7 tokens over 40 and 29 mel
+    frames from a numpy seed, a pitch in Hz (0 on unvoiced frames), an
+    energy, the beta-binomial aligner priors."""
+    import numpy as np
+
+    from tpu_tts_torch.ops.helpers import compute_attn_prior
+
+    rng = np.random.default_rng(SEED + 21)
+    x_lens, y_lens = np.array([11, 7]), np.array([40, 29])
+    b = {"text_input": np.zeros((2, 11), np.int64), "text_lengths": x_lens, "mel_lengths": y_lens,
+         "mel_input": np.zeros((2, 40, 20), np.float32), "pitch": np.zeros((2, 40), np.float32),
+         "energy": np.zeros((2, 40), np.float32), "attn_priors": np.zeros((2, 40, 11), np.float32)}
+    for i in range(2):
+        b["text_input"][i, : x_lens[i]] = rng.integers(1, 40, x_lens[i])
+        b["mel_input"][i, : y_lens[i]] = rng.standard_normal((y_lens[i], 20))
+        b["pitch"][i, : y_lens[i]] = (100 + 150 * rng.uniform(size=y_lens[i])) * (rng.uniform(size=y_lens[i]) > 0.2)
+        b["energy"][i, : y_lens[i]] = 5 * rng.uniform(size=y_lens[i])
+        b["attn_priors"][i, : y_lens[i], : x_lens[i]] = compute_attn_prior(int(x_lens[i]), int(y_lens[i]))
+    return b
+
+
+def check_forward_train_card_vs_cpu(name: str, devices=("cpu", "cuda")) -> dict:
+    """One `loss_fn` step of the tiny model of config class `name` (torch's
+    init from SEED, the duration head's bias FT_DURATION_BIAS; train mode,
+    so SpeedySpeech's BatchNorm normalises by the batch) on the card against
+    the same step on the CPU, in float32 and in float64 (TF32 off): in both,
+    every logged term within TRAIN_STEP_TOL[0] relative and the MAS
+    durations equal; in float64 each gradient within TRAIN_STEP_TOL[1] of
+    its tensor's largest |gradient| plus 1e-6 and the BatchNorm running
+    statistics within 1e-6. The float32 gradients' distance is printed, not
+    bounded: the decoder attention's query and key gradients are float32
+    rounding there (`tests/test_torch_port_forward.py`)."""
+    import torch
+
+    import tpu_tts_torch.models.forward_tts as ftts
+
+    config = forward_tiny_config(name)
+    batch = forward_tiny_batch()
+    seen, mas = [], ftts.maximum_path
+    ftts.maximum_path = lambda v, mask: seen.append(mas(v, mask)) or seen[-1]
+    out = {"model": config.model, "tol": list(TRAIN_STEP_TOL)}
+    try:
+        for dtype in (torch.float32, torch.float64):
+            models = {}
+            for dev in devices:
+                torch.manual_seed(SEED)
+                m = ftts.ForwardTTS(config, device=dev)
+                with torch.no_grad():
+                    m.net.duration_predictor.proj.bias.fill_(FT_DURATION_BIAS)
+                models[dev] = m
+            for dev in devices[1:]:
+                models[dev].load_training_state(models[devices[0]].training_state_dict(), strict=True)
+            res = {}
+            for dev, m in models.items():
+                m.net.to(dtype)
+                m.train(True)
+                b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+                b.update({k: b[k].to(dtype) for k in ("mel_input", "pitch", "energy", "attn_priors")})
+                seen.clear()
+                loss, logs = m.loss_fn(b, 0)
+                loss.backward()
+                res[dev] = ({k: float(v.detach()) for k, v in logs.items()}, seen[0].sum(-1).cpu(),
+                            {n: p.grad.detach().cpu() for n, p in m.net.named_parameters() if p.grad is not None},
+                            {n: b.detach().cpu() for n, b in m.net.named_buffers() if "running" in n})
+            (lc, dc, gc, bc), (lg, dg, gg, bg) = res[devices[0]], res[devices[-1]]
+            if set(lc) != set(lg) or not torch.equal(dc, dg) or set(gc) != set(gg) or not gc:
+                raise AssertionError(f"the card and the CPU gave other loss terms, MAS durations or gradient sets "
+                                     f"({name}, {dtype})")
+            worst_loss = max(abs(lc[k] - lg[k]) / max(1.0, abs(lc[k])) for k in lc)
+            worst_grad = max((float((gc[n] - gg[n]).abs().max()) - 1e-6) / max(float(gc[n].abs().max()), 1e-12)
+                             for n in gc)
+            worst_stat = max([float((bc[n] - bg[n]).abs().max()) for n in bc], default=0.0)
+            out[str(dtype)[6:]] = {"max_loss_rel_err": worst_loss, "max_grad_err_of_max": worst_grad,
+                                   "max_running_stat_err": worst_stat, "batch_norms": len(bc) // 2}
+            out[f"{str(dtype)[6:]}_losses"] = {k: [lc[k], lg[k]] for k in lc}
+            out["mas_durations"] = dc.tolist()
+    finally:
+        ftts.maximum_path = mas
+    log("forward train card vs cpu " + json.dumps(out))
+    f32, f64 = out["float32"], out["float64"]
+    if not (f32["max_loss_rel_err"] <= TRAIN_STEP_TOL[0] and f64["max_loss_rel_err"] <= TRAIN_STEP_TOL[0]
+            and f64["max_grad_err_of_max"] <= TRAIN_STEP_TOL[1] and f64["max_running_stat_err"] <= 1e-6):
+        raise AssertionError(f"the tiny {name} step on the card disagrees with the CPU: {out}")
+    return out
+
+
+def forward_train_config(root: str, out: str, epochs: int):
+    """The LJSpeech FastPitch recipe's settings (`recipes/ljspeech/fast_pitch/
+    train_fast_pitch.py`: the default model, batch 32, `mixed_precision`,
+    pyin F0 cached) with the `en_rules` phonemes (no espeak on the card's
+    machine), FT_TRAIN_EVAL_CLIPS eval clips and 4 loader threads."""
+    from tpu_tts_torch.config.shared_configs import BaseDatasetConfig
+    from tpu_tts_torch.configs import FastPitchConfig
+
+    return FastPitchConfig(
+        batch_size=32, eval_batch_size=FT_TRAIN_EVAL_CLIPS, batch_group_size=2, num_loader_workers=4,
+        run_eval=True, test_delay_epochs=-1, epochs=epochs, print_step=1, save_step=0, save_n_checkpoints=10,
+        output_path=out, text_cleaner="english_cleaners", use_phonemes=True, phonemizer="en_rules",
+        phoneme_language="en", compute_f0=True, f0_cache_path=os.path.join(root, "f0_cache"), mixed_precision=True,
+        training_seed=SEED + 1,
+        datasets=[BaseDatasetConfig(formatter="ljspeech", dataset_name="smoke", path=root,
+                                    meta_file_train="metadata.csv", meta_file_val="metadata_val.csv")])
+
+
+def forward_tts_phase(tmp: str, device: str = "cuda") -> dict:
+    """Phase 19b, the ForwardTTS family behind HiFi-GAN through K1: (a) the
+    default FastPitch (384 wide, 6 + 6 FFT layers) from SEED behind the
+    default HiFi-GAN V1 over the three `/api/tts` requests on the locked path
+    (72 K1 launches a sentence, a profile of the 78-character request), each
+    served waveform within 1e-3 of the plain MRF; one request each of the
+    default FastSpeech, FastSpeech2 and SpeedySpeech (the last loaded from a
+    Coqui-keyed state dict, so through `frozen_batch`) and of a 4-speaker
+    FastPitch, whose second speaker must give another waveform; (b) the
+    tiny FastPitch and SpeedySpeech steps on the card against the CPU; the
+    default FastPitch at the LJSpeech recipe's settings on FT_TRAIN_CLIPS
+    seeded clips, the pyin cache filled first, through `Trainer.fit` for
+    FT_TRAIN_EPOCHS steps with 0 K1 launches (`forward train steps`); one
+    more epoch resumed against uninterrupted; FT_OVERFIT_STEPS steps on one
+    batch at a constant FT_OVERFIT_LR lowering the spec loss; (c) the run
+    directory behind the vocoder: 72 launches, within 1e-3 of the plain
+    MRF."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from tpu_tts_torch.data import load_tts_samples
+    from tpu_tts_torch.infer.synthesizer import Synthesizer
+    from tpu_tts_torch.models.forward_tts import ForwardTTS
+    from tpu_tts_torch.ops import hifigan_mrf
+    from tpu_tts_torch.train import Trainer, TrainerArgs
+    from tpu_tts_torch.train.checkpoint import get_last_checkpoint
+
+    t0 = time.perf_counter()
+    parts = {}
+    voc = save_gan_vocoder(tmp, "HifiganConfig", device=device, discriminator=False)  # HiFi-GAN V1, its generator
+    voc = {k: voc[k] for k in ("vocoder_path", "vocoder_config_path")}
+    fp = save_forward(tmp, "FastPitchConfig", device)
+    checked = {}
+    launches = serve_and_check({"model_path": fp["model_path"], "config_path": fp["config_path"], **voc},
+                               hifigan_mrf, launches_per_sentence=72, device=device,
+                               check_synth=lambda synth: checked.update(
+                                   max_abs_err=check_against_plain_mrf(synth, TEXTS, "forward fast_pitch")))
+    torch.cuda.empty_cache()
+    requests = {}
+    for name, kw in (("FastSpeechConfig", {}), ("Fastspeech2Config", {}), ("SpeedySpeechConfig", {"coqui": True}),
+                     ("FastPitchConfig", {"speakers": True})):
+        paths = save_forward(tmp, name, device, **kw)
+        label = f"forward {'fast_pitch_speakers' if kw.get('speakers') else forward_config(name).model}"
+        requests[label] = serve_forward_request({k: paths[k] for k in ("model_path", "config_path")} | voc, label,
+                                                speaker="spk_b" if kw.get("speakers") else "", device=device)
+        if kw.get("speakers"):
+            synth = Synthesizer(paths["model_path"], paths["config_path"], voc["vocoder_path"],
+                                voc["vocoder_config_path"], device=device)
+            a, b = (np.asarray(synth.tts(TEXTS[0], speaker_name=s), dtype=np.float32) for s in ("spk_b", "spk_c"))
+            requests[label]["spk_b_vs_spk_c_max_abs_diff"] = diff = \
+                float(np.abs(a - b).max()) if a.size == b.size else None
+            if not (a.size != b.size or diff > 1e-3):
+                raise AssertionError("two speakers gave the same FastPitch waveform")
+            del synth
+        torch.cuda.empty_cache()
+    parts["serve_s"] = time.perf_counter() - t0
+
+    tiny = {name: check_forward_train_card_vs_cpu(name) for name in ("FastPitchConfig", "SpeedySpeechConfig")}
+    parts["card_vs_cpu_s"] = time.perf_counter() - t0 - sum(parts.values())
+    root, out = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+    data = write_clips(root, SEED + 17, FT_TRAIN_CLIPS, FT_TRAIN_EVAL_CLIPS, (2.0, 6.0), chars_per_s=15.0)
+    config = forward_train_config(root, out, FT_TRAIN_EPOCHS)
+    train_samples, eval_samples = load_tts_samples(config.datasets, eval_split=True)
+    data["f0_prefill_s"] = prefill_f0_cache(config, train_samples + eval_samples)
+    log("forward train data " + json.dumps(data))
+    parts["data_s"] = time.perf_counter() - t0 - sum(parts.values())
+    torch.manual_seed(SEED)
+    model = ForwardTTS.init_from_config(config, device=device, samples=train_samples)
+    params = sum(p.numel() for p in model.net.parameters())
+    row, trainer, probe = fit_and_probe(config, train_samples, eval_samples, out, device, model=model, keep=True)
+    row["mas_round_trip_ms"] = statistics.mean(probe.mas_ms) if probe.mas_ms else None
+    log("forward train steps " + json.dumps({**row, "params": params}))
+    parts["fit_s"] = time.perf_counter() - t0 - sum(parts.values())
+
+    checkpoint, _ = get_last_checkpoint(out)
+    n0 = len(probe.steps)
+    trainer.config.epochs = FT_TRAIN_EPOCHS + 1
+    trainer.fit()
+    uninterrupted = TrainProbe.losses(probe.steps[n0])
+    model_b = ForwardTTS.init_from_config(forward_train_config(root, out, FT_TRAIN_EPOCHS + 1), device=device,
+                                          samples=train_samples)
+    trainer_b = Trainer(TrainerArgs(device=device, continue_path=checkpoint), model_b.config,
+                        os.path.join(tmp, "resumed"), model=model_b, train_samples=train_samples,
+                        eval_samples=eval_samples)
+    probe_b = TrainProbe(trainer_b)
+    try:
+        trainer_b.fit()
+    finally:
+        probe_b.close()
+    resumed = TrainProbe.losses(probe_b.steps[0])
+    rel = max(abs(resumed[k] - uninterrupted[k]) / max(1.0, abs(uninterrupted[k])) for k in uninterrupted)
+    log("forward train resume " + json.dumps({"checkpoint": os.path.basename(checkpoint), "max_rel_err": rel,
+                                              "tol": RESUME_TOL, "uninterrupted": uninterrupted, "resumed": resumed}))
+    if set(resumed) != set(uninterrupted) or not rel <= RESUME_TOL:
+        raise AssertionError(f"the resumed FastPitch run's next step differs from the uninterrupted run's: {rel}")
+    del trainer_b, model_b, probe_b
+    torch.cuda.empty_cache()
+    parts["resume_s"] = time.perf_counter() - t0 - sum(parts.values())
+
+    batch = next(iter(model.get_data_loader(trainer.config, {}, is_eval=False, samples=train_samples, verbose=False)))
+    profile_call(lambda: trainer.train_step(batch), {"model": config.model, "batch": config.batch_size,
+                                                     "call": "one bfloat16 training step"}, top=10)
+    for opt in trainer.optimizers:  # the noam warmup's first updates move the weights by ~1e-7 of their scale
+        opt.schedule = FT_OVERFIT_LR
+    spec = []
+    for _ in range(FT_OVERFIT_STEPS):
+        trainer.generator.manual_seed(SEED)
+        torch.manual_seed(SEED)
+        spec.append(float(trainer.train_step(batch)["loss_spec"]))
+    overfit = {"steps": len(spec), "loss_spec": spec, "first": spec[0], "median_last3": statistics.median(spec[-3:])}
+    log("forward train overfit " + json.dumps(overfit))
+    train_launches = hifigan_mrf.launches  # every step since `fit_and_probe` zeroed the count
+    if not overfit["median_last3"] < overfit["first"] or train_launches != 0:
+        raise AssertionError(f"fixed-batch steps did not lower the spec loss, or training launched K1 "
+                             f"{train_launches} times: {overfit}")
+    del trainer, model, probe, batch
+    torch.cuda.empty_cache()
+    parts["profile_overfit_s"] = time.perf_counter() - t0 - sum(parts.values())
+
+    served = serve_forward_request({"model_path": get_last_checkpoint(out)[0],
+                                    "config_path": os.path.join(out, "config.json"), **voc},
+                                   "forward train serve", device=device)
+    wall = time.perf_counter() - t0
+    parts["train_serve_s"] = wall - sum(parts.values())
+    log(f"forward phase wall: {wall:.1f} s " + json.dumps(parts))
+    return {"hifigan_mrf_launches": launches, "max_abs_err": checked["max_abs_err"], "params": fp["params"],
+            "requests": requests, "tiny": tiny, "train": row, "train_launches": train_launches,
+            "resume_max_rel_err": rel, "overfit": overfit, "served": served, "phase_wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -3985,6 +4375,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         delightful_train = delightful_train_phase(tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        forward = forward_tts_phase(tmp)
 
     f32 = [r for r in rows if r["dtype"] == "float32"]
     served = next(r for r in k2_rows if r["mode"] == "sampled")  # the mode the vocoder serves
@@ -4061,6 +4454,15 @@ def main() -> int:
         "delightful_train_launches": delightful_train["hifigan_mrf_launches"],
         "delightful_train_serve_launches": delightful_train["served"]["hifigan_mrf_launches"],
         "delightful_train_serve_max_abs_err": delightful_train["served"]["max_abs_err_vs_plain"],
+        # FastPitch behind HiFi-GAN V1 over /api/tts (72 a sentence); FastSpeech, FastSpeech2, SpeedySpeech and a
+        # 4-speaker FastPitch (72 a request each); FastPitch training (no waveform decoder): 0; its run directory: 72
+        "forward_tts_launches": forward["hifigan_mrf_launches"]
+        + sum(r["hifigan_mrf_launches"] for r in forward["requests"].values()),
+        "forward_tts_max_abs_err": max([forward["max_abs_err"]]
+                                       + [r["max_abs_err_vs_plain"] for r in forward["requests"].values()]),
+        "forward_tts_train_launches": forward["train_launches"],
+        "forward_tts_train_serve_launches": forward["served"]["hifigan_mrf_launches"],
+        "forward_tts_train_serve_max_abs_err": forward["served"]["max_abs_err_vs_plain"],
         "launches_all_phases": (mrf_launches + batched["launches"] + multi["launches"] + yourtts["hifigan_mrf_launches"]
                                 + xtts["launches"] + train["hifigan_mrf_launches"]
                                 + train["served"]["hifigan_mrf_launches"] + xtts_train["hifigan_mrf_launches"]
@@ -4072,7 +4474,10 @@ def main() -> int:
                                 + vocoder["run_served"]["hifigan_mrf_launches"]
                                 + delightful["hifigan_mrf_launches"] + delightful["speaker_launches"]
                                 + delightful_train["hifigan_mrf_launches"]
-                                + delightful_train["served"]["hifigan_mrf_launches"]),
+                                + delightful_train["served"]["hifigan_mrf_launches"]
+                                + forward["hifigan_mrf_launches"]
+                                + sum(r["hifigan_mrf_launches"] for r in forward["requests"].values())
+                                + forward["train_launches"] + forward["served"]["hifigan_mrf_launches"]),
     }, {
         "name": "wavernn_sampler",
         "route": "cuda",

@@ -905,3 +905,42 @@ def test_xtts_cloning_through_k1():
         ref = model.net.decode_latents(lat, spk)
     assert launched == 72 and float((got - ref).abs().max()) <= 1e-3
     assert float((model.net.decode_latents(lat, spk_b) - got).abs().max()) > 1e-4
+
+
+@pytest.mark.cuda
+def test_fast_pitch_hifigan_through_k1():
+    """A tiny FastPitch (`chip_smoke.forward_tiny_config`, 80 mels) behind the
+    default HiFi-GAN V1 generator at unit gain on the card, through the
+    `Synthesizer` as a mel model and a vocoder: 72 K1 launches a sentence,
+    the waveform within 1e-3 of the plain MRF's, neither near silent nor
+    mostly saturated, n_frames · hop samples; then the tiny FastPitch and
+    SpeedySpeech `loss_fn` steps on the card against the CPU
+    (`check_forward_train_card_vs_cpu`)."""
+    import chip_smoke
+    from tpu_tts_torch.infer.synthesis import synthesis
+    from tpu_tts_torch.models.forward_tts import ForwardTTS
+    from tpu_tts_torch.vocoder.configs import HifiganConfig
+    from tpu_tts_torch.vocoder.models import setup_model
+
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    config = chip_smoke.forward_tiny_config("FastPitchConfig")
+    config.model_args.out_channels = config.audio.num_mels = 80
+    model = ForwardTTS.init_from_config(config, device="cuda")
+    with torch.no_grad():
+        model.net.duration_predictor.proj.bias.fill_(chip_smoke.FT_DURATION_BIAS)
+    vocoder = setup_model(HifiganConfig(), device="cuda", discriminator=False)
+    unit_gain_decoder(vocoder.model_g)
+    mel = synthesis(model, "Be a voice, not an echo.", config)["model_outputs"]
+    before = hifigan_mrf.launches
+    wav = vocoder.inference(mel)
+    launches = hifigan_mrf.launches - before
+    with plain_mrf():
+        ref = vocoder.inference(mel)
+    assert launches == 72 and wav.shape == (1, mel.shape[0] * 256, 1) and mel.shape[0] > 24
+    assert float(abs(wav - ref).max()) <= 1e-3 and float((ref**2).mean() ** 0.5) > 1e-3
+    assert float((abs(ref) > 0.999).mean()) <= 0.5
+    for name in ("FastPitchConfig", "SpeedySpeechConfig"):
+        out = chip_smoke.check_forward_train_card_vs_cpu(name)
+        assert out["float64"]["max_grad_err_of_max"] <= 1e-3 and out["float64"]["max_running_stat_err"] <= 1e-6

@@ -53,7 +53,7 @@ import torch
 
 from tests.test_torch_port_train import _compare_grads, _effective_jax_tree, _effective_torch_grads
 from tests.test_torch_port_vocoder_train import _dft_bases64, _Float64Numpy
-from tests.torch_port_common import cached_flax_shape_check, max_err, randomize
+from tests.torch_port_common import CompiledAhead, cached_flax_shape_check, max_err, randomize, session_runs
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
@@ -267,12 +267,13 @@ def _step_batches():
 
 
 @functools.lru_cache(maxsize=None)
-def jax_step_refs():
+def jax_step_program():
     """`jax.value_and_grad(DelightfulTTS.loss_fn)` of the D step (0) and the
     G step (1) in one jitted program, in float64: each (loss, (logs, MAS
     durations `[B, T_src]`), the gradient of the discriminator or the
     generator). Both halves of the params are arguments, so that XLA folds
-    neither into the other's program."""
+    neither into the other's program. Traced when the module's first test
+    starts (`_compile_ahead`), compiled meanwhile."""
     import flax.linen as nn
 
     import tpu_tts.layers.losses as jax_losses
@@ -314,47 +315,19 @@ def jax_step_refs():
         mp.setattr(nn.GRUCell, "initialize_carry",
                    lambda self, rng, shape: cell_carry(self, rng, shape).astype(jnp.float64))
         params = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float64), jm.params)
-        return jax.device_get(jax.jit(step)(params, jb))
+        return CompiledAhead(step, params, jb, context=jax.enable_x64)
 
 
-@pytest.mark.parametrize("optimizer_idx", [0, 1])
-def test_train_step_losses_grads_and_durations_match_jax(optimizer_idx, monkeypatch):
-    """One D step (0) or G step (1), float64 on both sides: every logged
-    term, the loss, every gradient of the optimizer's half, and the
-    aligner's MAS durations."""
-    import tpu_tts_torch.models.delightful_tts as dtts
-    from tpu_tts_torch.models.delightful_convert import params_from_flax
-    from tpu_tts_torch.models.vits_convert import disc_params_from_flax
+def jax_step_refs():
+    return jax_step_program().result()
 
-    (ref_loss, (ref_logs, ref_durations)), ref_grads = jax_step_refs()[optimizer_idx]
-    pm = port_model()
-    pm.net.double()
-    pm.disc.double()
-    _, pb = _step_batches()
-    seen = []
-    mas = dtts.maximum_path
-    monkeypatch.setattr(dtts, "maximum_path", lambda v, m: seen.append(mas(v, m)) or seen[-1])
-    loss, logs = pm.loss_fn(pb, optimizer_idx, draws={"segments": torch.from_numpy(SEGMENTS)})
-    loss.backward()
-    assert loss.dtype == torch.float64
-    if optimizer_idx == 1:
-        assert set(logs) == set(ref_logs) and "loss_binary_alignment" in logs
-    for k, v in ref_logs.items():
-        assert abs(float(logs[k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))), (k, float(logs[k]), float(v))
-    assert abs(float(loss.detach()) - float(ref_loss)) <= 1e-5 * max(1.0, abs(float(ref_loss)))
-    durations = seen[0].sum(-1).numpy()
-    np.testing.assert_array_equal(durations, np.asarray(ref_durations))
-    assert durations.sum(1).tolist() == pb["mel_lengths"].tolist() and len(np.unique(durations[0])) > 2
 
-    key = "discriminator" if optimizer_idx == 0 else "generator"
-    eff = _effective_jax_tree(jax.tree_util.tree_map(lambda x: np.asarray(x, np.float64), jax_model().params[key]),
-                              ref_grads)
-    if optimizer_idx == 0:
-        _compare_grads(_effective_torch_grads(pm.disc), disc_params_from_flax(eff, PERIODS), "D")
-        assert all(p.grad is None for p in pm.net.parameters())  # the D step leaves G alone
-        return
-    _compare_grads(_effective_torch_grads(pm.net), params_from_flax(eff), "G")
-    assert all(p.grad is None for p in pm.disc.parameters())  # and the G step D
+@pytest.fixture(scope="module", autouse=True)
+def _compile_ahead(request, cached_flax_shape_check):
+    """The step program traced before the module's first test; XLA compiles
+    it while the tests before the step tests (last in the module) run."""
+    if session_runs(request, "test_train_step_losses_grads_and_durations_match_jax"):
+        jax_step_program()
 
 
 # ------------------------------------------------------------------ CLI
@@ -401,3 +374,43 @@ def test_train_tts_cli_continue_and_synthesize(tmp_path):
     synth = Synthesizer(last, os.path.join(out, "config.json"), device="cpu")
     wav = np.asarray(synth.tts("a stitch in time saves nine."))
     assert wav.size > 1000 and np.isfinite(wav).all()
+
+
+@pytest.mark.parametrize("optimizer_idx", [0, 1])
+def test_train_step_losses_grads_and_durations_match_jax(optimizer_idx, monkeypatch):
+    """One D step (0) or G step (1), float64 on both sides: every logged
+    term, the loss, every gradient of the optimizer's half, and the
+    aligner's MAS durations."""
+    import tpu_tts_torch.models.delightful_tts as dtts
+    from tpu_tts_torch.models.delightful_convert import params_from_flax
+    from tpu_tts_torch.models.vits_convert import disc_params_from_flax
+
+    (ref_loss, (ref_logs, ref_durations)), ref_grads = jax_step_refs()[optimizer_idx]
+    pm = port_model()
+    pm.net.double()
+    pm.disc.double()
+    _, pb = _step_batches()
+    seen = []
+    mas = dtts.maximum_path
+    monkeypatch.setattr(dtts, "maximum_path", lambda v, m: seen.append(mas(v, m)) or seen[-1])
+    loss, logs = pm.loss_fn(pb, optimizer_idx, draws={"segments": torch.from_numpy(SEGMENTS)})
+    loss.backward()
+    assert loss.dtype == torch.float64
+    if optimizer_idx == 1:
+        assert set(logs) == set(ref_logs) and "loss_binary_alignment" in logs
+    for k, v in ref_logs.items():
+        assert abs(float(logs[k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))), (k, float(logs[k]), float(v))
+    assert abs(float(loss.detach()) - float(ref_loss)) <= 1e-5 * max(1.0, abs(float(ref_loss)))
+    durations = seen[0].sum(-1).numpy()
+    np.testing.assert_array_equal(durations, np.asarray(ref_durations))
+    assert durations.sum(1).tolist() == pb["mel_lengths"].tolist() and len(np.unique(durations[0])) > 2
+
+    key = "discriminator" if optimizer_idx == 0 else "generator"
+    eff = _effective_jax_tree(jax.tree_util.tree_map(lambda x: np.asarray(x, np.float64), jax_model().params[key]),
+                              ref_grads)
+    if optimizer_idx == 0:
+        _compare_grads(_effective_torch_grads(pm.disc), disc_params_from_flax(eff, PERIODS), "D")
+        assert all(p.grad is None for p in pm.net.parameters())  # the D step leaves G alone
+        return
+    _compare_grads(_effective_torch_grads(pm.net), params_from_flax(eff), "G")
+    assert all(p.grad is None for p in pm.disc.parameters())  # and the G step D

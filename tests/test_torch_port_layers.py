@@ -143,7 +143,9 @@ def test_port_imports_neither_jax_nor_tpu_tts():
                             "tpu_tts_torch.configs.delightful_tts_config", "tpu_tts_torch.layers.delightful",
                             "tpu_tts_torch.models.delightful_tts", "tpu_tts_torch.models.delightful_convert",
                             "tpu_tts_torch.layers.feed_forward", "tpu_tts_torch.audio.numpy_transforms",
-                            "tpu_tts_torch.ops.helpers")
+                            "tpu_tts_torch.ops.helpers", "tpu_tts_torch.configs.forward_tts_config",
+                            "tpu_tts_torch.layers.norms", "tpu_tts_torch.models.forward_tts",
+                            "tpu_tts_torch.models.forward_convert")
                 if m not in sys.modules]  # the serving modules are among those walked
         print(len([m for m in sys.modules if m.startswith("tpu_tts_torch.")]), bad)
         """

@@ -44,7 +44,8 @@ from tests.test_torch_port_train import (
     _effective_torch_grads,
     patch_jax_draws,
 )
-from tests.torch_port_common import SEED, TINY_ARGS, TINY_AUDIO, cached_flax_shape_check, max_err, port_config, randomize
+from tests.torch_port_common import (SEED, TINY_ARGS, TINY_AUDIO, CompiledAhead, cached_flax_shape_check, max_err,
+                                     port_config, randomize, session_runs)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
@@ -142,13 +143,13 @@ def _first_leaf(out):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_refs(mixed: bool, encoder_rate: bool = False):
+def jax_program(mixed: bool, encoder_rate: bool = False):
     """`jax.value_and_grad(Vits.loss_fn)` of the D step (0) and the G step
     (1) in one program, the G step with the alignment of its forward (the D
     step's forward, on the same weights and draws, is the same; returned
     from the D step it would keep MAS and the flow, which the D loss does
-    not read, in its program); and the output dtype of each module of
-    DTYPE_MODULES while it traced."""
+    not read, in its program), traced now and compiled ahead; and the
+    output dtype of each module of DTYPE_MODULES while it traced."""
     import flax.linen as nn
 
     jm = jax_model(mixed, encoder_rate)
@@ -182,9 +183,13 @@ def jax_refs(mixed: bool, encoder_rate: bool = False):
         args = (jm.params, {k: jnp.asarray(v) for k, v in jb.items()})
         # every bfloat16 op rounds, as on an accelerator and in the port; XLA:CPU
         # otherwise keeps float32 between fused bfloat16 ops
-        refs = jax.device_get(jax.jit(step).lower(*args).compile(
-            compiler_options={"xla_allow_excess_precision": False})(*args))
-    return refs, dtypes
+        program = CompiledAhead(step, *args, compiler_options={"xla_allow_excess_precision": False})
+    return program, dtypes
+
+
+def jax_refs(mixed: bool, encoder_rate: bool = False):
+    program, dtypes = jax_program(mixed, encoder_rate)
+    return program.result(), dtypes
 
 
 def _run_port(pm, pb, pd, idx, forced_attn=None):
@@ -293,32 +298,6 @@ def _step_against_jax(optimizer_idx, mixed, encoder_rate, loss_tol, grad_tol):
     return dtypes, jax_dtypes, pm
 
 
-@pytest.mark.parametrize("optimizer_idx", [0, 1])
-def test_mixed_precision_step_matches_jax(optimizer_idx):
-    """A D step (0) or G step (1) at mixed precision: losses, gradients and
-    the dtype map against JAX; then a trainer update keeps every parameter
-    and optimizer moment float32."""
-    dtypes, jax_dtypes, pm = _step_against_jax(optimizer_idx, True, False, 2e-2, None)
-    want = {"VitsTextEncoder": "float32", "VitsPosteriorEncoder": "float32", "WN": "float32",
-            "ResidualCouplingBlocks": "float32", "DurationPredictor": "float32", "WNConvTranspose1d": "bfloat16",
-            "ResBlock1": "bfloat16", "HifiganGenerator": "float32", "DiscriminatorS": "bfloat16"}
-    assert jax_dtypes == want
-    assert dtypes == want
-    opt = pm.get_optimizer()[optimizer_idx]
-    opt.step()
-    assert opt.count == 1
-    params = list(pm.disc.parameters() if optimizer_idx == 0 else pm.net.parameters())
-    assert {p.dtype for p in params} == {torch.float32}
-    assert {v.dtype for st in opt.inner.state.values() for v in st.values() if torch.is_tensor(v)} == {torch.float32}
-
-
-@pytest.mark.parametrize("optimizer_idx", [0, 1])
-def test_encoder_sample_rate_step_matches_jax(optimizer_idx):
-    """`encoder_sample_rate` half the output rate, float32: the posterior
-    reads the resized waveform, the decoder the upsampled z at ×2 offsets."""
-    _step_against_jax(optimizer_idx, False, True, 1e-5, 1e-3)
-
-
 @pytest.mark.parametrize("n, m", [(4410, 2205), (22050, 16000)])
 def test_resize_matches_jax_image_resize(n, m):
     from tpu_tts_torch.audio.torch_transforms import resize_linear
@@ -328,20 +307,16 @@ def test_resize_matches_jax_image_resize(n, m):
     assert max_err(resize_linear(torch.from_numpy(y), m), ref) <= 1e-6
 
 
-def test_mixed_precision_xtts_loss_matches_jax():
-    """The tiny XTTS fine-tuning loss through the raw wavs under the
-    trainer's generic cast (its net's parameters and the batch in bfloat16,
-    the DVAE float32 outside it) against `tpu_tts`'s `autocast_args`."""
+@functools.lru_cache(maxsize=None)
+def jax_xtts_program():
+    """The tiny XTTS loss and gradients through the raw wavs under
+    `tpu_tts`'s `autocast_args`, with the DVAE's codes, compiled ahead."""
     from tests.test_torch_port_xtts_train import _batch as xtts_batch
     from tests.test_torch_port_xtts_train import models as xtts_models
     from tpu_tts.train.precision import autocast_args as jax_autocast
-    from tpu_tts_torch.models.xtts_convert import params_from_flax
-    from tpu_tts_torch.train import precision
 
-    jm, pm = xtts_models()
-    raw = xtts_batch()
+    jm, _ = xtts_models()
 
-    @jax.jit
     def ref(params, batch):
         def loss_of(p):
             p16, b16 = jax_autocast(p, batch)
@@ -352,27 +327,20 @@ def test_mixed_precision_xtts_loss_matches_jax():
 
         return jax.value_and_grad(loss_of, has_aux=True)(params)
 
-    (ref_loss, (ref_logs, ref_codes)), ref_grads = jax.device_get(ref(jm.params, {k: jnp.asarray(v)
-                                                                                  for k, v in raw.items()}))
-    pb = {k: torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v) for k, v in raw.items()}
-    net = pm.net
-    net.zero_grad(set_to_none=True)
-    pm.train(True)
-    params16, batch16 = precision.autocast_args(dict(net.named_parameters()), pb)
-    loss, logs = precision.call_cast(net, params16, pm.loss_fn, batch16, 0)
-    loss.float().backward()
-    pm.train(False)
-    codes = pm.dvae.get_codebook_indices(pm._dvae_mel(batch16["wav"]))
-    n_diff = int((codes.numpy() != ref_codes).sum())
-    print(f" > DVAE codes on the bfloat16 waveform: {n_diff} of {codes.numel()} differ from JAX's")
-    assert n_diff == 0
-    for k in ("loss_text_ce", "loss_mel_ce"):
-        assert abs(float(logs[k]) - float(ref_logs[k])) <= 2e-2 * max(1.0, abs(float(ref_logs[k]))), k
-    assert abs(float(loss) - float(ref_loss)) <= 2e-2 * max(1.0, abs(float(ref_loss)))
-    want = params_from_flax({k: v for k, v in ref_grads.items() if k not in ("hifigan_decoder", "speaker_proj")})
-    got = dict(net.named_parameters())
-    assert all(got[k].dtype == torch.float32 for k in want)
-    _compare_grads({k: got[k].grad for k in want}, want, "XTTS", 5e-2)
+    return CompiledAhead(ref, jm.params, {k: jnp.asarray(v) for k, v in xtts_batch().items()})
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compile_ahead(request, cached_flax_shape_check):
+    """The module's three JAX programs traced before its first test; XLA
+    compiles each while the next traces and the tests before them (last in
+    the module) run."""
+    if session_runs(request, "test_mixed_precision_step"):
+        jax_program(True)
+    if session_runs(request, "test_encoder_sample_rate_step"):
+        jax_program(False, True)
+    if session_runs(request, "test_mixed_precision_xtts_loss"):
+        jax_xtts_program()
 
 
 @pytest.mark.parametrize("name, params", [("radam", {}), ("radam", {"weight_decay": 0.01}), ("rmsprop", {}),
@@ -478,3 +446,62 @@ def test_dashboard_logger_writes_events(tmp_path):
             assert {"train/loss", "train/loss_line", "eval/loss"} <= tags
         else:
             assert not os.path.exists(os.path.join(out, "logs"))
+
+
+@pytest.mark.parametrize("optimizer_idx", [0, 1])
+def test_mixed_precision_step_matches_jax(optimizer_idx):
+    """A D step (0) or G step (1) at mixed precision: losses, gradients and
+    the dtype map against JAX; then a trainer update keeps every parameter
+    and optimizer moment float32."""
+    dtypes, jax_dtypes, pm = _step_against_jax(optimizer_idx, True, False, 2e-2, None)
+    want = {"VitsTextEncoder": "float32", "VitsPosteriorEncoder": "float32", "WN": "float32",
+            "ResidualCouplingBlocks": "float32", "DurationPredictor": "float32", "WNConvTranspose1d": "bfloat16",
+            "ResBlock1": "bfloat16", "HifiganGenerator": "float32", "DiscriminatorS": "bfloat16"}
+    assert jax_dtypes == want
+    assert dtypes == want
+    opt = pm.get_optimizer()[optimizer_idx]
+    opt.step()
+    assert opt.count == 1
+    params = list(pm.disc.parameters() if optimizer_idx == 0 else pm.net.parameters())
+    assert {p.dtype for p in params} == {torch.float32}
+    assert {v.dtype for st in opt.inner.state.values() for v in st.values() if torch.is_tensor(v)} == {torch.float32}
+
+
+@pytest.mark.parametrize("optimizer_idx", [0, 1])
+def test_encoder_sample_rate_step_matches_jax(optimizer_idx):
+    """`encoder_sample_rate` half the output rate, float32: the posterior
+    reads the resized waveform, the decoder the upsampled z at ×2 offsets."""
+    _step_against_jax(optimizer_idx, False, True, 1e-5, 1e-3)
+
+
+def test_mixed_precision_xtts_loss_matches_jax():
+    """The tiny XTTS fine-tuning loss through the raw wavs under the
+    trainer's generic cast (its net's parameters and the batch in bfloat16,
+    the DVAE float32 outside it) against `tpu_tts`'s `autocast_args`."""
+    from tests.test_torch_port_xtts_train import _batch as xtts_batch
+    from tests.test_torch_port_xtts_train import models as xtts_models
+    from tpu_tts_torch.models.xtts_convert import params_from_flax
+    from tpu_tts_torch.train import precision
+
+    jm, pm = xtts_models()
+    raw = xtts_batch()
+    (ref_loss, (ref_logs, ref_codes)), ref_grads = jax_xtts_program().result()
+    pb = {k: torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v) for k, v in raw.items()}
+    net = pm.net
+    net.zero_grad(set_to_none=True)
+    pm.train(True)
+    params16, batch16 = precision.autocast_args(dict(net.named_parameters()), pb)
+    loss, logs = precision.call_cast(net, params16, pm.loss_fn, batch16, 0)
+    loss.float().backward()
+    pm.train(False)
+    codes = pm.dvae.get_codebook_indices(pm._dvae_mel(batch16["wav"]))
+    n_diff = int((codes.numpy() != ref_codes).sum())
+    print(f" > DVAE codes on the bfloat16 waveform: {n_diff} of {codes.numel()} differ from JAX's")
+    assert n_diff == 0
+    for k in ("loss_text_ce", "loss_mel_ce"):
+        assert abs(float(logs[k]) - float(ref_logs[k])) <= 2e-2 * max(1.0, abs(float(ref_logs[k]))), k
+    assert abs(float(loss) - float(ref_loss)) <= 2e-2 * max(1.0, abs(float(ref_loss)))
+    want = params_from_flax({k: v for k, v in ref_grads.items() if k not in ("hifigan_decoder", "speaker_proj")})
+    got = dict(net.named_parameters())
+    assert all(got[k].dtype == torch.float32 for k in want)
+    _compare_grads({k: got[k].grad for k in want}, want, "XTTS", 5e-2)

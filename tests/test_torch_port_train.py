@@ -35,7 +35,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import SEED, TINY_ARGS, TINY_AUDIO, cached_flax_shape_check, max_err, port_config, randomize
+from tests.torch_port_common import (SEED, TINY_ARGS, TINY_AUDIO, CompiledAhead, cached_flax_shape_check, max_err,
+                                     port_config, randomize, session_runs)
 from tpu_tts_torch.ops import hifigan_mrf, mas
 
 torch.set_num_threads(1)
@@ -115,14 +116,15 @@ LAYERS = ("VitsPosteriorEncoder", "ResidualCouplingBlocks", "StochasticDurationP
 
 
 @functools.lru_cache(maxsize=None)
-def jax_step_refs():
+def jax_step_program():
     """`jax.value_and_grad(Vits.loss_fn)` of the D step (0) and the G step (1)
     on `_batch()`, in one program: XLA shares the generator forward both
     run. Each is (loss, (logs, the outputs of LAYERS), grads), the outputs
     of the G step only: returned from the D step too they would keep the
     posterior, flow and SDP, which the D loss does not read, in its program.
     Both halves of the params are arguments, since as constants XLA would
-    fold the discriminator into the G step's program."""
+    fold the discriminator into the G step's program. Traced when the
+    module's first test starts (`_compile_ahead`), compiled meanwhile."""
     jm = jax_train_model()
     jb, _, draws, _ = _batch()
 
@@ -140,7 +142,19 @@ def jax_step_refs():
 
     with pytest.MonkeyPatch.context() as mp:
         patch_jax_draws(mp, draws)
-        return jax.device_get(jax.jit(step)(jm.params, {k: jnp.asarray(v) for k, v in jb.items()}))
+        return CompiledAhead(step, jm.params, {k: jnp.asarray(v) for k, v in jb.items()})
+
+
+def jax_step_refs():
+    return jax_step_program().result()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compile_ahead(request, cached_flax_shape_check):
+    """The step program traced before the module's first test; XLA compiles
+    it while the tests before the step tests (last in the module) run."""
+    if session_runs(request, "test_train_step_losses_and_grads_match_jax"):
+        jax_step_program()
 
 
 # ----------------------------------------------------------------------- ops
@@ -267,48 +281,6 @@ def _capture_jax(names):
         return out
 
     return seen, nn.intercept_methods(interceptor)
-
-
-@pytest.mark.parametrize("optimizer_idx", [0, 1])
-def test_train_step_losses_and_grads_match_jax(optimizer_idx):
-    """One D step (0) or G step (1) of `Vits.loss_fn` against
-    `jax.value_and_grad(Vits.loss_fn)`: every loss term and every gradient;
-    in the G step also the posterior encoder's, the forward flow's and the
-    SDP's outputs."""
-    from tpu_tts_torch.models.vits_convert import disc_params_from_flax, params_from_flax
-
-    jm, pm = jax_train_model(), port_train_model()
-    _, pb, _, pd = _batch()
-    key = "discriminator" if optimizer_idx == 0 else "generator"
-    (ref_loss, (ref_logs, ref_seen)), ref_grads = jax_step_refs()[optimizer_idx]
-    seen = {}
-    hooks = [getattr(pm.net, name).register_forward_hook(lambda mod, a, out, name=name: seen.setdefault(name, out))
-             for name in ("posterior_encoder", "flow", "duration_predictor")]
-    try:
-        loss, logs = pm.loss_fn(pb, optimizer_idx, draws=pd)
-    finally:
-        for h in hooks:
-            h.remove()
-    loss.backward()
-    for k, v in ref_logs.items():
-        assert abs(float(logs[k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))), (k, float(logs[k]), float(v))
-    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * max(1.0, abs(float(ref_loss)))
-
-    eff = _effective_jax_tree(jm.params[key], ref_grads)
-    if optimizer_idx == 0:
-        want = disc_params_from_flax(eff, TINY_ARGS["periods_multi_period_discriminator"])
-        _compare_grads(_effective_torch_grads(pm.disc), want, "D")
-        assert all(p.grad is None for p in pm.net.parameters())  # the D step leaves G alone
-        return
-    _compare_grads(_effective_torch_grads(pm.net), params_from_flax(eff), "G")
-    assert all(p.grad is None for p in pm.disc.parameters())  # and the G step D
-    z, m_q, logs_q, y_mask = (t.detach() for t in seen["posterior_encoder"])
-    for r, g in zip(ref_seen["VitsPosteriorEncoder"][:3], (z, m_q, logs_q)):
-        assert max_err(g.transpose(1, 2), r) <= 1e-4
-    assert max_err(seen["flow"].detach().transpose(1, 2), ref_seen["ResidualCouplingBlocks"]) <= 1e-4
-    assert max_err(seen["flow"].detach(), z) > 1e-2  # the flow does work
-    nll = ref_seen["StochasticDurationPredictor"]
-    assert max_err(seen["duration_predictor"].detach(), nll) <= 1e-4 * max(1.0, float(np.abs(np.asarray(nll)).max()))
 
 
 # ----------------------------------------------------------------- optimizer
@@ -492,3 +464,45 @@ def test_coqui_pth_round_trip_gives_equal_losses(tmp_path):
         with torch.no_grad():
             a, b = pm.loss_fn(pb, idx, draws=pd)[0], other.loss_fn(pb, idx, draws=pd)[0]
         assert float(a) == float(b)
+
+
+@pytest.mark.parametrize("optimizer_idx", [0, 1])
+def test_train_step_losses_and_grads_match_jax(optimizer_idx):
+    """One D step (0) or G step (1) of `Vits.loss_fn` against
+    `jax.value_and_grad(Vits.loss_fn)`: every loss term and every gradient;
+    in the G step also the posterior encoder's, the forward flow's and the
+    SDP's outputs."""
+    from tpu_tts_torch.models.vits_convert import disc_params_from_flax, params_from_flax
+
+    jm, pm = jax_train_model(), port_train_model()
+    _, pb, _, pd = _batch()
+    key = "discriminator" if optimizer_idx == 0 else "generator"
+    (ref_loss, (ref_logs, ref_seen)), ref_grads = jax_step_refs()[optimizer_idx]
+    seen = {}
+    hooks = [getattr(pm.net, name).register_forward_hook(lambda mod, a, out, name=name: seen.setdefault(name, out))
+             for name in ("posterior_encoder", "flow", "duration_predictor")]
+    try:
+        loss, logs = pm.loss_fn(pb, optimizer_idx, draws=pd)
+    finally:
+        for h in hooks:
+            h.remove()
+    loss.backward()
+    for k, v in ref_logs.items():
+        assert abs(float(logs[k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))), (k, float(logs[k]), float(v))
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * max(1.0, abs(float(ref_loss)))
+
+    eff = _effective_jax_tree(jm.params[key], ref_grads)
+    if optimizer_idx == 0:
+        want = disc_params_from_flax(eff, TINY_ARGS["periods_multi_period_discriminator"])
+        _compare_grads(_effective_torch_grads(pm.disc), want, "D")
+        assert all(p.grad is None for p in pm.net.parameters())  # the D step leaves G alone
+        return
+    _compare_grads(_effective_torch_grads(pm.net), params_from_flax(eff), "G")
+    assert all(p.grad is None for p in pm.disc.parameters())  # and the G step D
+    z, m_q, logs_q, y_mask = (t.detach() for t in seen["posterior_encoder"])
+    for r, g in zip(ref_seen["VitsPosteriorEncoder"][:3], (z, m_q, logs_q)):
+        assert max_err(g.transpose(1, 2), r) <= 1e-4
+    assert max_err(seen["flow"].detach().transpose(1, 2), ref_seen["ResidualCouplingBlocks"]) <= 1e-4
+    assert max_err(seen["flow"].detach(), z) > 1e-2  # the flow does work
+    nll = ref_seen["StochasticDurationPredictor"]
+    assert max_err(seen["duration_predictor"].detach(), nll) <= 1e-4 * max(1.0, float(np.abs(np.asarray(nll)).max()))

@@ -41,10 +41,12 @@ from tests.torch_port_common import (
     SEED,
     TINY_ARGS,
     TINY_AUDIO,
+    CompiledAhead,
     flax_param_shapes,
     cached_flax_shape_check,
     max_err,
     randomize,
+    session_runs,
 )
 
 torch.set_num_threads(1)
@@ -130,8 +132,8 @@ def _batch(seed=0):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_step_refs():
-    """`jax.value_and_grad(Vits.loss_fn)` of the D step (0) and the G step (1), in one program."""
+def jax_step_program():
+    """`jax.value_and_grad(Vits.loss_fn)` of the D step (0) and the G step (1), in one program, compiled ahead."""
     jm = jax_model()
     jb, _, draws, _ = _batch()
 
@@ -143,33 +145,19 @@ def jax_step_refs():
 
     with pytest.MonkeyPatch.context() as mp:
         patch_jax_draws(mp, draws)
-        return jax.device_get(jax.jit(step)(jm.params, {k: jnp.asarray(v) for k, v in jb.items()}))
+        return CompiledAhead(step, jm.params, {k: jnp.asarray(v) for k, v in jb.items()})
 
 
-@pytest.mark.parametrize("optimizer_idx", [0, 1])
-def test_speakers_train_step_matches_jax(optimizer_idx):
-    """One D step (0) or G step (1) of the multi-speaker multilingual
-    `Vits.loss_fn` against JAX's: every loss term and every gradient, with
-    the speaker and language embeddings' in the G step."""
-    from tpu_tts_torch.models.vits_convert import disc_params_from_flax, params_from_flax
+def jax_step_refs():
+    return jax_step_program().result()
 
-    jm, pm = jax_model(), port_model()
-    pm.train(True)
-    _, pb, _, pd = _batch()
-    (ref_loss, ref_logs), ref_grads = jax_step_refs()[optimizer_idx]
-    loss, logs = pm.loss_fn(pb, optimizer_idx, draws=pd)
-    loss.backward()
-    for k, v in ref_logs.items():
-        assert abs(float(logs[k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))), (k, float(logs[k]), float(v))
-    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * max(1.0, abs(float(ref_loss)))
-    key = "discriminator" if optimizer_idx == 0 else "generator"
-    eff = _effective_jax_tree(jm.params[key], ref_grads)
-    if optimizer_idx == 0:
-        _compare_grads(_effective_torch_grads(pm.disc), disc_params_from_flax(eff, PERIODS), "D")
-        return
-    _compare_grads(_effective_torch_grads(pm.net), params_from_flax(eff), "G")
-    for name in ("emb_g.weight", "emb_l.weight"):
-        assert float(dict(pm.net.named_parameters())[name].grad.abs().max()) > 0, name
+
+@pytest.fixture(scope="module", autouse=True)
+def _compile_ahead(request, cached_flax_shape_check):
+    """The step program traced before the module's first test; XLA compiles
+    it while the tests before the step tests (last in the module) run."""
+    if session_runs(request, "test_speakers_train_step_matches_jax"):
+        jax_step_program()
 
 
 def _write_clips(root, rows, seed=3):
@@ -327,3 +315,29 @@ def test_synthesizer_and_cli_voice_conversion_match_jax(tmp_path, monkeypatch):
                 "--out_path", paths["out"]])
     _, pcm = scipy.io.wavfile.read(paths["out"])
     assert pcm.shape == got.shape
+
+
+@pytest.mark.parametrize("optimizer_idx", [0, 1])
+def test_speakers_train_step_matches_jax(optimizer_idx):
+    """One D step (0) or G step (1) of the multi-speaker multilingual
+    `Vits.loss_fn` against JAX's: every loss term and every gradient, with
+    the speaker and language embeddings' in the G step."""
+    from tpu_tts_torch.models.vits_convert import disc_params_from_flax, params_from_flax
+
+    jm, pm = jax_model(), port_model()
+    pm.train(True)
+    _, pb, _, pd = _batch()
+    (ref_loss, ref_logs), ref_grads = jax_step_refs()[optimizer_idx]
+    loss, logs = pm.loss_fn(pb, optimizer_idx, draws=pd)
+    loss.backward()
+    for k, v in ref_logs.items():
+        assert abs(float(logs[k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))), (k, float(logs[k]), float(v))
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * max(1.0, abs(float(ref_loss)))
+    key = "discriminator" if optimizer_idx == 0 else "generator"
+    eff = _effective_jax_tree(jm.params[key], ref_grads)
+    if optimizer_idx == 0:
+        _compare_grads(_effective_torch_grads(pm.disc), disc_params_from_flax(eff, PERIODS), "D")
+        return
+    _compare_grads(_effective_torch_grads(pm.net), params_from_flax(eff), "G")
+    for name in ("emb_g.weight", "emb_l.weight"):
+        assert float(dict(pm.net.named_parameters())[name].grad.abs().max()) > 0, name

@@ -15,6 +15,7 @@ The tiny models and their weights are `tests/test_torch_port_vocoder.py`'s.
 """
 
 import copy
+import functools
 import glob
 import json
 import os
@@ -28,7 +29,7 @@ import torch
 
 from tests.test_torch_port_train import _compare_grads, _effective_jax_tree, _effective_torch_grads
 from tests.test_torch_port_vocoder import MELS, hifigan_pair, multiband_pair
-from tests.torch_port_common import cached_flax_shape_check
+from tests.torch_port_common import CompiledAhead, cached_flax_shape_check, session_runs
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
@@ -43,23 +44,6 @@ def _gan_batch(T_mel, seed, hop=16):
     wav = (0.4 * np.sin(2 * np.pi * 0.03 * t)[None] + 0.05 * rng.standard_normal((2, T_mel * hop)))
     jb = {"mel_input": mel, "waveform": wav.astype(np.float32)[:, :, None]}
     return jb, {k: torch.from_numpy(v) for k, v in jb.items()}
-
-
-def test_hifigan_gan_losses_match_jax_forward():
-    """A tiny HiFi-GAN GAN's D and G loss terms (the full-width HiFi-GAN
-    discriminator, the l1 mel, feature-matching and MSE terms) against one
-    jitted JAX forward of `GAN.loss_fn` for both sub-steps."""
-    jm, pm = hifigan_pair()
-    jb, pb = _gan_batch(8, 8)
-    refs = jax.device_get(jax.jit(lambda p, b: [jm.loss_fn(p, b, jax.random.PRNGKey(0), i) for i in (0, 1)])(
-        jm.params, {k: jnp.asarray(v) for k, v in jb.items()}))
-    pm.train(True)
-    with torch.no_grad():
-        for idx, (ref_loss, ref_logs) in enumerate(refs):
-            loss, logs = pm.loss_fn(pb, idx)
-            assert set(logs) == set(ref_logs) and float(ref_logs["loss"]) > 0
-            for k, v in ref_logs.items():
-                assert abs(float(logs[k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))), (idx, k, float(logs[k]), float(v))
 
 
 def _dft_bases64(fft_size, win_length, window):
@@ -80,70 +64,6 @@ class _Float64Numpy:
 
     def __getattr__(self, name):
         return getattr(jnp, name)
-
-
-def test_multiband_gan_step_matches_jax():
-    """A tiny 4-band MelGAN GAN (PQMF, the subband STFT term; the generator
-    at a 64-channel base): one D and one
-    G step's losses and every gradient against `jax.value_and_grad`, both
-    sides in float64 (JAX with x64, its STFT and losses' float32 read as
-    float64; the port's net in float64), at 64 mel frames: the subband
-    term's log magnitude of STFT bins 2·10⁴ times below their frame's level
-    amplifies rounding, so at 16 frames the port's own float32 G gradient
-    is up to 2.6e-3 of a tensor's max from its float64 one, JAX's float32
-    gradient 1.9e-3 from JAX's float64 one, and even in float64 a 1e-7
-    change of a weight moves it by 1e-4; 64 frames are better conditioned."""
-    from tpu_tts.audio import jax_transforms
-    from tpu_tts.vocoder.layers import losses as jl
-    from tpu_tts.vocoder.models.vocoder_convert import convert_gan_torch_state_dict
-    from tpu_tts_torch.vocoder.models import setup_model
-    from tpu_tts_torch.vocoder.models.vocoder_convert import gan_state_dict_from_flax
-
-    jm, pm32 = multiband_pair(base_channels=64)
-    pm = setup_model(pm32.config, device="cpu")
-    pm.net.model_g = copy.deepcopy(pm32.net.model_g)
-    pm.net.load_state_dict(pm32.net.state_dict())
-    pm.net.double()
-    # JAX's generator from the port's float64 weights (the JAX converter), so
-    # both fold the same kernels
-    gen64 = convert_gan_torch_state_dict({k: v.numpy() for k, v in pm.net.state_dict().items()},
-                                         generator_name=pm.config.generator_model)["generator"]
-    jb, pb = _gan_batch(64, 9)
-    pb = {k: v.double() for k, v in pb.items()}
-
-    def step(params, batch):
-        out = []
-        for idx, key in ((0, "discriminator"), (1, "generator")):
-            def loss_of(sub, idx=idx, key=key):
-                return jm.loss_fn({**params, key: sub}, batch, jax.random.PRNGKey(0), idx)
-
-            out.append(jax.value_and_grad(loss_of, has_aux=True)(params[key]))
-        return out
-
-    with jax.enable_x64(), pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_transforms, "_dft_bases", _dft_bases64)
-        for module in (jax_transforms, jl):
-            mp.setattr(module, "jnp", _Float64Numpy())
-        mp.setattr(jm.pqmf, "H", jnp.asarray(np.asarray(jm.pqmf.H), jnp.float64))
-        mp.setattr(jm.pqmf, "G", jnp.asarray(np.asarray(jm.pqmf.G), jnp.float64))
-        params = jax.tree.map(lambda x: jnp.asarray(np.asarray(x), jnp.float64),
-                              {"generator": gen64, "discriminator": jm.params["discriminator"]})
-        refs = jax.device_get(jax.jit(step)(params, {k: jnp.asarray(v, jnp.float64) for k, v in jb.items()}))
-    pm.train(True)
-    for idx, ((ref_loss, ref_logs), ref_grads) in enumerate(refs):
-        for p in pm.net.parameters():
-            p.grad = None
-        loss, logs = pm.loss_fn(pb, idx)
-        loss.backward()
-        for k, v in ref_logs.items():
-            assert abs(float(logs[k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))), (idx, k, float(logs[k]), float(v))
-        key, part = ("discriminator", "model_d") if idx == 0 else ("generator", "model_g")
-        eff = _effective_jax_tree(params[key], ref_grads)
-        want = gan_state_dict_from_flax({key: eff}, "multiband_melgan_generator", 2)
-        want = {k[len(part) + 1:]: v for k, v in want.items() if k.startswith(part + ".")}
-        _compare_grads(_effective_torch_grads(getattr(pm.net, part)), want, part, rel=1e-4)
-        other = pm.net.model_g if idx == 0 else pm.net.model_d
-        assert all(p.grad is None for p in other.parameters())
 
 
 def _config(out):
@@ -207,3 +127,116 @@ def test_train_vocoder_cli_continue_and_synthesize(tmp_path, capsys):
     sr, pcm = scipy.io.wavfile.read(wav_path)
     assert sr == 22050 and pcm.size > 10000 and np.abs(pcm).max() > 0
     assert len(glob.glob(os.path.join(out, "checkpoint_*.pth"))) == 2
+
+
+@functools.lru_cache(maxsize=None)
+def hifigan_program():
+    """One jitted JAX forward of the tiny HiFi-GAN GAN's `loss_fn` for both
+    sub-steps on `_gan_batch(8, 8)`, compiled ahead."""
+    jm, _ = hifigan_pair()
+    jb, _ = _gan_batch(8, 8)
+    return CompiledAhead(lambda p, b: [jm.loss_fn(p, b, jax.random.PRNGKey(0), i) for i in (0, 1)], jm.params,
+                         {k: jnp.asarray(v) for k, v in jb.items()})
+
+
+def test_hifigan_gan_losses_match_jax_forward():
+    """A tiny HiFi-GAN GAN's D and G loss terms (the full-width HiFi-GAN
+    discriminator, the l1 mel, feature-matching and MSE terms) against one
+    jitted JAX forward of `GAN.loss_fn` for both sub-steps."""
+    _, pm = hifigan_pair()
+    _, pb = _gan_batch(8, 8)
+    refs = hifigan_program().result()
+    pm.train(True)
+    with torch.no_grad():
+        for idx, (ref_loss, ref_logs) in enumerate(refs):
+            loss, logs = pm.loss_fn(pb, idx)
+            assert set(logs) == set(ref_logs) and float(ref_logs["loss"]) > 0
+            for k, v in ref_logs.items():
+                assert abs(float(logs[k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))), (idx, k, float(logs[k]), float(v))
+
+
+@functools.lru_cache(maxsize=None)
+def multiband_program():
+    """The float64 port GAN of `test_multiband_gan_step_matches_jax`, its
+    batch, the JAX params, and `jax.value_and_grad` of its D and G steps in
+    one program, compiled ahead."""
+    from tpu_tts.audio import jax_transforms
+    from tpu_tts.vocoder.layers import losses as jl
+    from tpu_tts.vocoder.models.vocoder_convert import convert_gan_torch_state_dict
+    from tpu_tts_torch.vocoder.models import setup_model
+
+    jm, pm32 = multiband_pair(base_channels=64)
+    pm = setup_model(pm32.config, device="cpu")
+    pm.net.model_g = copy.deepcopy(pm32.net.model_g)
+    pm.net.load_state_dict(pm32.net.state_dict())
+    pm.net.double()
+    # JAX's generator from the port's float64 weights (the JAX converter), so
+    # both fold the same kernels
+    gen64 = convert_gan_torch_state_dict({k: v.numpy() for k, v in pm.net.state_dict().items()},
+                                         generator_name=pm.config.generator_model)["generator"]
+    jb, pb = _gan_batch(64, 9)
+    pb = {k: v.double() for k, v in pb.items()}
+
+    def step(params, batch):
+        out = []
+        for idx, key in ((0, "discriminator"), (1, "generator")):
+            def loss_of(sub, idx=idx, key=key):
+                return jm.loss_fn({**params, key: sub}, batch, jax.random.PRNGKey(0), idx)
+
+            out.append(jax.value_and_grad(loss_of, has_aux=True)(params[key]))
+        return out
+
+    with jax.enable_x64(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_transforms, "_dft_bases", _dft_bases64)
+        for module in (jax_transforms, jl):
+            mp.setattr(module, "jnp", _Float64Numpy())
+        mp.setattr(jm.pqmf, "H", jnp.asarray(np.asarray(jm.pqmf.H), jnp.float64))
+        mp.setattr(jm.pqmf, "G", jnp.asarray(np.asarray(jm.pqmf.G), jnp.float64))
+        params = jax.tree.map(lambda x: jnp.asarray(np.asarray(x), jnp.float64),
+                              {"generator": gen64, "discriminator": jm.params["discriminator"]})
+        program = CompiledAhead(step, params, {k: jnp.asarray(v, jnp.float64) for k, v in jb.items()},
+                                context=jax.enable_x64)
+    return pm, pb, params, program
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compile_ahead(request, cached_flax_shape_check):
+    """Both JAX programs traced before the module's first test; XLA compiles
+    the first while the second traces, and both while the tests before them
+    (last in the module) run."""
+    if session_runs(request, "test_hifigan_gan_losses"):
+        hifigan_program()
+    if session_runs(request, "test_multiband_gan_step"):
+        multiband_program()
+
+
+def test_multiband_gan_step_matches_jax():
+    """A tiny 4-band MelGAN GAN (PQMF, the subband STFT term; the generator
+    at a 64-channel base): one D and one
+    G step's losses and every gradient against `jax.value_and_grad`, both
+    sides in float64 (JAX with x64, its STFT and losses' float32 read as
+    float64; the port's net in float64), at 64 mel frames: the subband
+    term's log magnitude of STFT bins 2·10⁴ times below their frame's level
+    amplifies rounding, so at 16 frames the port's own float32 G gradient
+    is up to 2.6e-3 of a tensor's max from its float64 one, JAX's float32
+    gradient 1.9e-3 from JAX's float64 one, and even in float64 a 1e-7
+    change of a weight moves it by 1e-4; 64 frames are better conditioned."""
+    from tpu_tts_torch.vocoder.models.vocoder_convert import gan_state_dict_from_flax
+
+    pm, pb, params, program = multiband_program()
+    refs = program.result()
+    pm.train(True)
+    for idx, ((ref_loss, ref_logs), ref_grads) in enumerate(refs):
+        for p in pm.net.parameters():
+            p.grad = None
+        loss, logs = pm.loss_fn(pb, idx)
+        loss.backward()
+        for k, v in ref_logs.items():
+            assert abs(float(logs[k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))), (idx, k, float(logs[k]), float(v))
+        key, part = ("discriminator", "model_d") if idx == 0 else ("generator", "model_g")
+        eff = _effective_jax_tree(params[key], ref_grads)
+        want = gan_state_dict_from_flax({key: eff}, "multiband_melgan_generator", 2)
+        want = {k[len(part) + 1:]: v for k, v in want.items() if k.startswith(part + ".")}
+        _compare_grads(_effective_torch_grads(getattr(pm.net, part)), want, part, rel=1e-4)
+        other = pm.net.model_g if idx == 0 else pm.net.model_d
+        assert all(p.grad is None for p in other.parameters())

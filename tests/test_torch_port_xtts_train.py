@@ -29,7 +29,8 @@ import pytest
 import scipy.io.wavfile
 import torch
 
-from tests.torch_port_common import XTTS_ARGS, cached_flax_shape_check, jax_xtts, max_err, port_xtts
+from tests.torch_port_common import (XTTS_ARGS, CompiledAhead, cached_flax_shape_check, jax_xtts, max_err, port_xtts,
+                                     session_runs)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.usefixtures("cached_flax_shape_check")  # flax checks each param shape once per initializer
@@ -136,15 +137,15 @@ def test_dvae_codes_match_jax_through_the_bridge_and_coqui_keys():
 
 
 @functools.lru_cache(maxsize=None)
-def jax_loss_refs():
+def jax_loss_program():
     """`jax.value_and_grad(Xtts.loss_fn)` on `_batch()` through the raw wavs
     and through ready-made codes (the raw route's, with shorter lengths),
-    with the framed targets and masks of `train_forward`; one program."""
+    with the framed targets and masks of `train_forward`; one program,
+    compiled ahead."""
     from tpu_tts.models.xtts import XttsNet
 
     jm, _ = models()
 
-    @jax.jit
     def step(params, raw):
         def value_and_grad(b):
             return jax.value_and_grad(lambda p: jm.loss_fn(p, b, jax.random.PRNGKey(0)), has_aux=True)(params)
@@ -159,49 +160,19 @@ def jax_loss_refs():
         framed = {k: framed[k] for k in ("text_targets", "mel_targets", "text_mask", "mel_mask")}
         return {"wavs": (value_and_grad(raw), raw, None), "codes": (value_and_grad(ready), ready, framed)}
 
-    return jax.device_get(step(jm.params, {k: jnp.asarray(v) for k, v in _batch().items()}))
+    return CompiledAhead(step, jm.params, {k: jnp.asarray(v) for k, v in _batch().items()})
 
 
-@pytest.mark.parametrize("route", ["codes", "wavs"])
-def test_loss_and_gradients_match_jax(route):
-    """`Xtts.loss_fn` against `jax.value_and_grad(Xtts.loss_fn)`: the framing
-    (targets, masks) of `train_forward`, each loss term, every gradient of
-    the trained set; the frozen decoder and `speaker_proj` get none."""
-    from tpu_tts_torch.models.xtts_convert import params_from_flax
+def jax_loss_refs():
+    return jax_loss_program().result()
 
-    _, pm = models()
-    ((ref_loss, ref_logs), ref_grads), jb, framed = jax_loss_refs()[route]
-    pb = {k: torch.from_numpy(np.array(v)) for k, v in jb.items()}
-    pb = {k: v.transpose(1, 2) if k == "cond_mel" else (v.long() if not v.is_floating_point() else v)
-          for k, v in pb.items()}
-    pm.net.zero_grad(set_to_none=True)
-    pm.train(True)
-    loss, logs = pm.loss_fn(pb, 0)
-    loss.backward()
-    pm.train(False)
-    for k in ("loss_text_ce", "loss_mel_ce"):
-        assert abs(float(logs[k]) - float(ref_logs[k])) <= 1e-5 * max(1.0, abs(float(ref_logs[k]))), k
-    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * max(1.0, abs(float(ref_loss)))
-    if framed is not None:
-        cond, codes, code_lengths = pm.targets(pb)
-        out = pm.net.train_forward(cond, pb["text_tokens"], pb["text_lengths"], torch.nn.functional.pad(codes, (0, 3)),
-                                   code_lengths)
-        for k, v in framed.items():
-            np.testing.assert_array_equal(out[k].numpy(), v, err_msg=k)
 
-    trained = {k: v for k, v in ref_grads.items() if k not in ("hifigan_decoder", "speaker_proj")}
-    want = params_from_flax(trained)
-    got = dict(pm.net.named_parameters())
-    assert set(want) == {n for n in got if n.startswith("gpt.")}
-    bad = []
-    for name, w in want.items():
-        g = got[name].grad
-        scale = float(w.abs().max())
-        if g is None or not float((g - w).abs().max()) <= 1e-4 * scale + 1e-7:
-            bad.append((name, None if g is None else float((g - w).abs().max()), scale))
-    assert not bad, bad[:6]
-    assert all(p.grad is None for n, p in got.items() if not n.startswith("gpt."))
-    assert float(got["gpt.conditioning_encoder.init.weight"].grad.abs().max()) > 0
+@pytest.fixture(scope="module", autouse=True)
+def _compile_ahead(request, cached_flax_shape_check):
+    """The loss program traced before the module's first test; XLA compiles
+    it while the tests before the loss tests (last in the module) run."""
+    if session_runs(request, "test_loss_and_gradients_match_jax"):
+        jax_loss_program()
 
 
 def test_masked_adamw_matches_optax():
@@ -357,3 +328,45 @@ def test_train_tts_cli_fine_tunes_a_model_directory(tmp_path, monkeypatch):
     synth = Synthesizer(model_dir=run, device="cpu")
     assert torch.equal(synth.tts_model.net.state_dict()["gpt.mel_head.weight"], after["gpt.mel_head.weight"])
     assert "spk" in synth.tts_model._bundled_speakers()
+
+
+@pytest.mark.parametrize("route", ["codes", "wavs"])
+def test_loss_and_gradients_match_jax(route):
+    """`Xtts.loss_fn` against `jax.value_and_grad(Xtts.loss_fn)`: the framing
+    (targets, masks) of `train_forward`, each loss term, every gradient of
+    the trained set; the frozen decoder and `speaker_proj` get none."""
+    from tpu_tts_torch.models.xtts_convert import params_from_flax
+
+    _, pm = models()
+    ((ref_loss, ref_logs), ref_grads), jb, framed = jax_loss_refs()[route]
+    pb = {k: torch.from_numpy(np.array(v)) for k, v in jb.items()}
+    pb = {k: v.transpose(1, 2) if k == "cond_mel" else (v.long() if not v.is_floating_point() else v)
+          for k, v in pb.items()}
+    pm.net.zero_grad(set_to_none=True)
+    pm.train(True)
+    loss, logs = pm.loss_fn(pb, 0)
+    loss.backward()
+    pm.train(False)
+    for k in ("loss_text_ce", "loss_mel_ce"):
+        assert abs(float(logs[k]) - float(ref_logs[k])) <= 1e-5 * max(1.0, abs(float(ref_logs[k]))), k
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * max(1.0, abs(float(ref_loss)))
+    if framed is not None:
+        cond, codes, code_lengths = pm.targets(pb)
+        out = pm.net.train_forward(cond, pb["text_tokens"], pb["text_lengths"], torch.nn.functional.pad(codes, (0, 3)),
+                                   code_lengths)
+        for k, v in framed.items():
+            np.testing.assert_array_equal(out[k].numpy(), v, err_msg=k)
+
+    trained = {k: v for k, v in ref_grads.items() if k not in ("hifigan_decoder", "speaker_proj")}
+    want = params_from_flax(trained)
+    got = dict(pm.net.named_parameters())
+    assert set(want) == {n for n in got if n.startswith("gpt.")}
+    bad = []
+    for name, w in want.items():
+        g = got[name].grad
+        scale = float(w.abs().max())
+        if g is None or not float((g - w).abs().max()) <= 1e-4 * scale + 1e-7:
+            bad.append((name, None if g is None else float((g - w).abs().max()), scale))
+    assert not bad, bad[:6]
+    assert all(p.grad is None for n, p in got.items() if not n.startswith("gpt."))
+    assert float(got["gpt.conditioning_encoder.init.weight"].grad.abs().max()) > 0

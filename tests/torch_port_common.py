@@ -2,6 +2,8 @@
 WaveRNN built on both sides, the JAX params drawn from a numpy seed and
 carried into the port through `params_from_flax`."""
 
+import concurrent.futures
+import contextlib
 import functools
 import types
 
@@ -137,6 +139,39 @@ def cached_flax_shape_check():
     with pytest.MonkeyPatch.context() as mp:
         cache_flax_param_shape_check(mp)
         yield
+
+
+_XLA_COMPILES = concurrent.futures.ThreadPoolExecutor(max_workers=2, thread_name_prefix="xla-compile")
+
+
+class CompiledAhead:
+    """A JAX reference program traced and lowered now, on the calling thread
+    (where the caller's patches of the JAX package apply), and compiled by
+    XLA on a worker thread: XLA's compile holds no GIL, so the tests that run
+    meanwhile overlap it. `result()` waits for the executable, runs it once
+    on `args` inside `context` (`jax.enable_x64` for a float64 program, whose
+    inputs must not be cast down) and keeps its outputs as numpy. The
+    program, its inputs and its outputs are those of `jax.jit(fn)(*args)`."""
+
+    def __init__(self, fn, *args, context=contextlib.nullcontext, compiler_options=None):
+        self._args = args
+        self._context = context
+        lowered = jax.jit(fn).lower(*args)
+        self._compiled = _XLA_COMPILES.submit(lambda: lowered.compile(compiler_options=compiler_options))
+        self._out = None
+
+    def result(self):
+        if self._out is None:
+            with self._context():
+                self._out = jax.device_get(self._compiled.result()(*self._args))
+        return self._out
+
+
+def session_runs(request, *prefixes) -> bool:
+    """Whether the session runs a test of the requesting module whose name
+    starts with one of `prefixes` (so that a module fixture compiles ahead
+    only what a `-k` selection reads)."""
+    return any(item.module is request.module and item.name.startswith(prefixes) for item in request.session.items)
 
 
 def flax_param_shapes(module, *args, **kwargs):

@@ -501,6 +501,12 @@ def compute_f0(
 # Silence
 # ---------------------------------------------------------------------------
 
+def compute_energy(y: np.ndarray, **kwargs) -> np.ndarray:
+    """Each frame's spectral energy: the L2 norm over frequency of |stft(y)|."""
+    mag = np.abs(stft(y=y, **kwargs))
+    return np.sqrt(np.sum(mag**2, axis=0))
+
+
 def find_endpoint(
     *,
     wav: np.ndarray = None,

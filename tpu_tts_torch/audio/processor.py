@@ -262,6 +262,11 @@ class AudioProcessor:
                              win_length=self.win_length, sample_rate=self.sample_rate,
                              stft_pad_mode=self.stft_pad_mode, center=True)
 
+    def compute_energy(self, x: np.ndarray) -> np.ndarray:
+        """Each frame's spectral energy `[T_mel]` (`numpy_transforms.compute_energy`)."""
+        return nt.compute_energy(x, fft_size=self.fft_size, hop_length=self.hop_length, win_length=self.win_length,
+                                 pad_mode=self.stft_pad_mode)
+
     # ---- silence and volume ----------------------------------------------------------
     def find_endpoint(self, wav: np.ndarray, min_silence_sec=0.8) -> int:
         return nt.find_endpoint(wav=wav, trim_db=self.trim_db, sample_rate=self.sample_rate,

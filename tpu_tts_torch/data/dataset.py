@@ -11,11 +11,14 @@ and length balancers) the loader draws each epoch's items with replacement
 in proportion to them, from the epoch's seeded generator, and sorts them
 so that batches keep the length sorting. With `compute_f0` each item
 carries its pyin F0 (`ap.compute_f0`, cached as .npy under `f0_cache_path`)
-and the collate a `pitch` `[B, T_mel]` (`:321-328`); with `use_attn_prior`
-an `attn_priors` `[B, T_mel, T_text]` of each row's beta-binomial prior on
-its token and mel counts (`:307-319`, cached under `attn_prior_cache_path`).
-The linear spectrograms and energy of the other acoustic models come with
-them (ROADMAP.md, M9b); VITS computes its spectrograms on the device.
+and the collate a `pitch` `[B, T_mel]` (`:321-328`); with `compute_energy`
+each item its per-frame spectral norm (`ap.compute_energy`, `:170-172`,
+cached under `energy_cache_path`) and the collate an `energy` `[B, T_mel]`;
+with `use_attn_prior` an `attn_priors` `[B, T_mel, T_text]` of each row's
+beta-binomial prior on its token and mel counts (`:307-319`, cached under
+`attn_prior_cache_path`). The linear spectrograms of the other acoustic
+models come with them (ROADMAP.md, M9b); VITS computes its spectrograms on
+the device.
 
 One divergence: the loader seeds each epoch's shuffle from (seed, epoch),
 `set_epoch` as torch's samplers have it, where the JAX loader carries one
@@ -86,6 +89,8 @@ class TTSDataset:
         return_wav: bool = False,
         compute_f0: bool = False,
         f0_cache_path: Optional[str] = None,
+        compute_energy: bool = False,
+        energy_cache_path: Optional[str] = None,
         use_attn_prior: bool = False,
         attn_prior_cache_path: Optional[str] = None,
         batch_group_size: int = 0,
@@ -107,6 +112,7 @@ class TTSDataset:
         self.outputs_per_step = outputs_per_step
         self.return_wav = return_wav
         self.compute_f0 = compute_f0
+        self.compute_energy = compute_energy
         self.use_attn_prior = use_attn_prior
         self.batch_group_size = batch_group_size
         self.min_audio_len = min_audio_len
@@ -126,6 +132,7 @@ class TTSDataset:
         self.rescue_item_idx = 1
         self.phoneme_cache = FeatureCache(phoneme_cache_path, "_phoneme.npy")
         self.f0_cache = FeatureCache(f0_cache_path, "_f0.npy")
+        self.energy_cache = FeatureCache(energy_cache_path, "_energy.npy")
         self.attn_prior_cache = FeatureCache(attn_prior_cache_path, "_attn_prior.npy")
         self._token_cache: Dict[int, np.ndarray] = {}
 
@@ -158,11 +165,16 @@ class TTSDataset:
         f0 = None
         if self.compute_f0:
             f0 = self.f0_cache.get(item["audio_unique_name"], lambda: self.ap.compute_f0(wav).astype(np.float32))
+        energy = None
+        if self.compute_energy:
+            energy = self.energy_cache.get(item["audio_unique_name"],
+                                           lambda: self.ap.compute_energy(wav).astype(np.float32))
         return {
             "raw_text": item["text"],
             "token_ids": self.get_token_ids(idx, item["text"]),
             "wav": wav,
             "pitch": f0,
+            "energy": energy,
             "item_idx": item["audio_file"],
             "speaker_name": item.get("speaker_name"),
             "language_name": item.get("language"),
@@ -203,7 +215,7 @@ class TTSDataset:
         `format_batch` names): text_input, text_lengths, mel_input,
         mel_lengths, stop_targets, with `return_wav` waveform
         `[B, 1, T_mel · hop]` and waveform_lengths, with `use_attn_prior`
-        attn_priors and with `compute_f0` pitch."""
+        attn_priors, with `compute_f0` pitch and with `compute_energy` energy."""
         B = len(batch)
         token_lens = np.array([len(d["token_ids"]) for d in batch], dtype=np.int32)
         mels = [self.ap.melspectrogram(d["wav"]).astype(np.float32).T for d in batch]  # [T, C]
@@ -251,12 +263,13 @@ class TTSDataset:
                     int(token_lens[i]), int(mel_lens[i])).astype(np.float32))
                 priors[i, : pr.shape[0], : pr.shape[1]] = pr[:T_mel, :T_text]
             out["attn_priors"] = torch.from_numpy(priors)
-        if batch[0]["pitch"] is not None:
-            pitch = np.zeros((B, T_mel), dtype=np.float32)
-            for i, d in enumerate(batch):
-                f = d["pitch"][:T_mel]
-                pitch[i, : len(f)] = f
-            out["pitch"] = torch.from_numpy(pitch)
+        for key in ("pitch", "energy"):
+            if batch[0].get(key) is not None:
+                arr = np.zeros((B, T_mel), dtype=np.float32)
+                for i, d in enumerate(batch):
+                    f = d[key][:T_mel]
+                    arr[i, : len(f)] = f
+                out[key] = torch.from_numpy(arr)
         if self.speaker_id_mapping:
             out["speaker_ids"] = torch.tensor([self.speaker_id_mapping[d["speaker_name"]] for d in batch])
         if self.d_vector_mapping:

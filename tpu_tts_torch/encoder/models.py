@@ -17,7 +17,7 @@ log-mel `[B, C_mel, T]` and keep Coqui's layout and names
   before `bn1` (`:94-96`); the attentive pooling's variance is clamped at
   1e-5 (`:153`), the input instance norm uses eps 1e-5 (`:122-125`).
 
-`norm_type` is `_Norm2d`'s: "batch" is `nn.BatchNorm` (torch's momentum
+`norm_type` is `_Norm2d`'s (`layers/norms.py`): "batch" is `nn.BatchNorm` (torch's momentum
 0.1 and unbiased running variance, `TorchBatchNorm`'s), normalising by the
 batch in `train()` mode; "frozen_batch" always normalises by its running
 statistics (a Coqui checkpoint's, `FrozenBatchNorm`), and takes no
@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from tpu_tts_torch.audio import torch_transforms as tt
 from tpu_tts_torch.device import resolve_device
+from tpu_tts_torch.layers.norms import make_norm
 
 
 def _instance_norm(x):
@@ -73,39 +74,6 @@ class LSTMSpeakerEncoder(nn.Module):
         return _l2(d) if l2_norm else d
 
 
-class FrozenBatchNorm(nn.modules.batchnorm._BatchNorm):
-    """A batch norm that always normalises by its running statistics."""
-
-    def _check_input_dim(self, x):
-        pass
-
-    def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
-
-
-class ChannelLayerNorm(nn.Module):
-    """LayerNorm over dim 1 of `[B, C, ...]` (flax's, eps 1e-6)."""
-
-    def __init__(self, channels: int, eps: float = 1e-6):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-
-    def forward(self, x):
-        return F.layer_norm(x.movedim(1, -1), self.weight.shape, self.weight, self.bias, self.eps).movedim(-1, 1)
-
-
-def _norm(norm_type: str, channels: int, dims: int = 2) -> nn.Module:
-    if norm_type == "batch":
-        return (nn.BatchNorm2d if dims == 2 else nn.BatchNorm1d)(channels, eps=1e-5, momentum=0.1)
-    if norm_type == "frozen_batch":
-        return FrozenBatchNorm(channels, eps=1e-5)
-    if norm_type == "layer":
-        return ChannelLayerNorm(channels)
-    raise ValueError(f" [!] Unknown norm_type {norm_type}")
-
-
 class SELayer(nn.Module):
     def __init__(self, channels: int, reduction: int = 8):
         super().__init__()
@@ -124,14 +92,14 @@ class SEBasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1, norm_type: str = "batch"):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1, bias=False)
-        self.bn1 = _norm(norm_type, planes)
+        self.bn1 = make_norm(norm_type, planes, dims=2)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.bn2 = _norm(norm_type, planes)
+        self.bn2 = make_norm(norm_type, planes, dims=2)
         self.se = SELayer(planes)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
-                                            _norm(norm_type, planes))
+                                            make_norm(norm_type, planes, dims=2))
 
     def forward(self, x):
         y = self.bn1(F.relu(self.conv1(x)))
@@ -150,7 +118,7 @@ class ResNetSpeakerEncoder(nn.Module):
         self.layers, self.num_filters = tuple(layers), tuple(num_filters)
         self.encoder_type, self.norm_type = encoder_type, norm_type
         self.conv1 = nn.Conv2d(1, num_filters[0], 3, padding=1)
-        self.bn1 = _norm(norm_type, num_filters[0])
+        self.bn1 = make_norm(norm_type, num_filters[0], dims=2)
         inplanes = num_filters[0]
         for li, (n_blocks, planes) in enumerate(zip(layers, num_filters)):
             blocks = []
@@ -159,7 +127,7 @@ class ResNetSpeakerEncoder(nn.Module):
                 inplanes = planes
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
         width = num_filters[-1] * (input_dim // 8)
-        self.attention = nn.Sequential(nn.Conv1d(width, 128, 1), nn.ReLU(), _norm(norm_type, 128, dims=1),
+        self.attention = nn.Sequential(nn.Conv1d(width, 128, 1), nn.ReLU(), make_norm(norm_type, 128, dims=1),
                                        nn.Conv1d(128, width, 1), nn.Softmax(dim=2))
         self.fc = nn.Linear(width * (2 if encoder_type == "ASP" else 1), proj_dim)
 

@@ -129,7 +129,7 @@ class Synthesizer:
 
         self.vocoder_config = load_config(config_path)
         self.vocoder_ap = AudioProcessor.init_from_config(self.vocoder_config)
-        self.vocoder_model = setup_vocoder(self.vocoder_config, device=self.device)
+        self.vocoder_model = setup_vocoder(self.vocoder_config, device=self.device, discriminator=False)
         self.vocoder_model.load_checkpoint(self.vocoder_config, checkpoint, eval=True)
         self.output_sample_rate = self.vocoder_config.audio["sample_rate"]
 

@@ -1,11 +1,14 @@
-"""VITS losses and the aligner's forward-sum loss, in float32.
+"""VITS losses, the aligner's forward-sum loss and the ForwardTTS losses, in float32.
 
-Counterparts of `tpu_tts/layers/losses.py` (`kl_loss`:67, `forward_sum_loss`
-:87, `feature_loss`:209, `generator_loss`:220, `discriminator_loss`:228).
+Counterparts of `tpu_tts/layers/losses.py` (`masked_mse_loss`:46,
+`masked_l1_loss`:53, `kl_loss`:67, `forward_sum_loss`:87, `_gaussian_kernel`
+:163, `ssim_loss`:172, `binary_alignment_loss`:202, `feature_loss`:209,
+`generator_loss`:220, `discriminator_loss`:228).
 The port's tensors are channels-first; every loss here is a sum or mean, so
 the layout does not change it.
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -16,6 +19,66 @@ def wide(x: torch.Tensor) -> torch.Tensor:
     """x in float32, or in float64 if it is: where JAX reads a loss's inputs
     in float32, a float64 run keeps its precision."""
     return x if x.dtype == torch.float64 else x.float()
+
+
+def _length_mask(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """`[B, T, 1]` 1/0 mask of the first `lengths` frames of `x` `[B, T, C]`, in x's dtype."""
+    return (torch.arange(x.shape[1], device=x.device)[None, :] < lengths[:, None]).to(x.dtype)[:, :, None]
+
+
+def masked_mse_loss(x: torch.Tensor, target: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """The mean squared error over each row's first `lengths` frames:
+    x, target `[B, T, C]`."""
+    x, target = wide(x), wide(target)
+    mask = _length_mask(x, lengths)
+    return torch.sum((x - target) ** 2 * mask) / (torch.sum(mask) * x.shape[-1])
+
+
+def masked_l1_loss(x: torch.Tensor, target: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """The mean absolute error over each row's first `lengths` frames."""
+    x, target = wide(x), wide(target)
+    mask = _length_mask(x, lengths)
+    return torch.sum(torch.abs(x - target) * mask) / (torch.sum(mask) * x.shape[-1])
+
+
+def _gaussian_kernel(size: int = 11, sigma: float = 1.5) -> np.ndarray:
+    coords = np.arange(size) - size // 2
+    g = np.exp(-(coords**2) / (2 * sigma**2))
+    g /= g.sum()
+    return np.outer(g, g).astype(np.float32)
+
+
+def ssim_loss(x: torch.Tensor, y: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """1 − SSIM of two spectrograms `[B, T, C]` read as one-channel images,
+    zeroed past each row's length and scaled together into [0, 1] by their
+    joint min and max (range at least 1e-6); an 11 × 11 Gaussian window
+    (σ 1.5) with zero padding, C1 = 0.01², C2 = 0.03²."""
+    x, y = wide(x), wide(y)
+    mask = _length_mask(x, lengths)
+    x, y = (x * mask)[:, None], (y * mask)[:, None]  # [B, 1, T, C]
+    mn = torch.minimum(x.min(), y.min())
+    rng = torch.clamp(torch.maximum(x.max(), y.max()) - mn, min=1e-6)
+    x, y = (x - mn) / rng, (y - mn) / rng
+    k = torch.from_numpy(_gaussian_kernel()).to(x)[None, None]
+
+    def f(z):
+        return F.conv2d(z, k, padding=k.shape[-1] // 2)
+
+    c1, c2 = 0.01**2, 0.03**2
+    mu_x, mu_y = f(x), f(y)
+    sigma_x = f(x * x) - mu_x**2
+    sigma_y = f(y * y) - mu_y**2
+    sigma_xy = f(x * y) - mu_x * mu_y
+    ssim_map = ((2 * mu_x * mu_y + c1) * (2 * sigma_xy + c2)) / ((mu_x**2 + mu_y**2 + c1) * (sigma_x + sigma_y + c2))
+    return 1.0 - torch.mean(ssim_map)
+
+
+def binary_alignment_loss(alignment_hard: torch.Tensor, alignment_soft: torch.Tensor) -> torch.Tensor:
+    """−Σ log(soft) over the hard path's cells / their count (at least 1):
+    pulls the soft attention `[B, T_de, T_en]` toward the MAS path."""
+    log_soft = torch.log(torch.clamp(wide(alignment_soft), min=1e-12))
+    masked = torch.where(alignment_hard == 1, log_soft, torch.zeros_like(log_soft))
+    return -torch.sum(masked) / torch.clamp(torch.sum(alignment_hard), min=1.0)
 
 
 def kl_loss(z_p, logs_q, m_p, logs_p, z_mask) -> torch.Tensor:

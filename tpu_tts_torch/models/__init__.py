@@ -3,8 +3,10 @@
 
 def setup_model(config, device=None, samples=None):
     """Build the model a config names, on `device` (`cuda` by default);
-    `samples` (training's) give a multi-speaker VITS its speaker ids."""
-    name = config.model.lower()
+    `samples` (training's) give a multi-speaker model its speaker ids. A
+    config's `base_model` names the model class (`fast_pitch`,
+    `fast_speech`, `fastspeech2`, `speedy_speech` → `forward_tts`)."""
+    name = (getattr(config, "base_model", None) or config.model).lower()
     if name == "vits":
         from tpu_tts_torch.models.vits import Vits
 
@@ -17,6 +19,10 @@ def setup_model(config, device=None, samples=None):
         from tpu_tts_torch.models.delightful_tts import DelightfulTTS
 
         return DelightfulTTS.init_from_config(config, device=device, samples=samples)
+    if name == "forward_tts":
+        from tpu_tts_torch.models.forward_tts import ForwardTTS
+
+        return ForwardTTS.init_from_config(config, device=device, samples=samples)
     if name == "xtts":
         from tpu_tts_torch.models.xtts import Xtts
 

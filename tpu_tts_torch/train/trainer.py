@@ -247,13 +247,19 @@ class Trainer:
     @torch.no_grad()
     def eval_epoch(self, eval_loader) -> float:
         """Every optimizer's loss over the eval batches, in train mode as the
-        JAX trainer evaluates; the sum over optimizers of each one's mean."""
+        JAX trainer evaluates; the sum over optimizers of each one's mean.
+        The net's buffers (BatchNorm running statistics) are put back after
+        it, as the JAX trainer drops its eval steps' `batch_stats`."""
         self.model.train(True)
         losses_by_opt: List[List] = [[] for _ in range(self.num_optimizers)]
+        net = getattr(self.model, "net", None)
+        buffers = [(b, b.clone()) for b in net.buffers()] if isinstance(net, torch.nn.Module) else []
         for batch in eval_loader:
             batch = self._to_device(batch)
             for idx in range(self.num_optimizers):
                 losses_by_opt[idx].append(self._loss(batch, idx)[0])
+        for b, saved in buffers:
+            b.copy_(saved)
         if any(losses_by_opt):
             avg = float(sum(np.mean([float(x) for x in per_opt]) for per_opt in losses_by_opt if per_opt))
         else:

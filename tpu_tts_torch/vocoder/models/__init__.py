@@ -2,13 +2,14 @@
 `setup_model`:13, `setup_generator`:31, `setup_discriminator`:105)."""
 
 
-def setup_model(config, device=None):
+def setup_model(config, device=None, discriminator: bool = True):
     """Build the vocoder a config names, on `device` (`cuda` by default): a
-    `GAN` when the config names a discriminator, else WaveRNN."""
+    `GAN` when the config names a discriminator, else WaveRNN. Without
+    `discriminator` a GAN is built for serving, its generator alone."""
     if "discriminator_model" in config and config.discriminator_model:
         from tpu_tts_torch.vocoder.models.gan import GAN
 
-        return GAN.init_from_config(config, device=device)
+        return GAN.init_from_config(config, device=device, discriminator=discriminator)
     name = (config.model if "model" in config and config.model else config.generator_model).lower()
     if name != "wavernn":
         item = "WaveGrad" if name == "wavegrad" else name

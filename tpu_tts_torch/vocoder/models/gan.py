@@ -6,7 +6,9 @@ with PQMF :32-37, `handles_mixed_precision`:43, `convert_torch_state_dict`
 `inference`:202, `get_data_loader`:214). The net holds `model_g` and
 `model_d`, Coqui's names, so a Coqui GAN `.pth` loads by key
 (`vocoder_convert.py`); a generator-only checkpoint keeps the discriminator
-the model was built with.
+the model was built with. A GAN built for serving (`discriminator=False`,
+the `Synthesizer`'s) has no discriminator and reads none from a
+checkpoint.
 
 Inference (`eval()` mode): mel `[B, T, C]` or `[T, C]` → waveform
 `[B, T·hop, 1]`, the generator applied to the mel as it is (`tpu_tts`'s
@@ -47,20 +49,21 @@ from tpu_tts_torch.vocoder.layers.losses import GeneratorLossConfig, discriminat
 
 
 class GanNet(nn.Module):
-    def __init__(self, model_g: nn.Module, model_d: nn.Module):
+    def __init__(self, model_g: nn.Module, model_d: Optional[nn.Module]):
         super().__init__()
         self.model_g = model_g
         self.model_d = model_d
 
 
 class GAN:
-    def __init__(self, config, ap=None, device=None):
+    def __init__(self, config, ap=None, device=None, discriminator: bool = True):
         from tpu_tts_torch.vocoder.models import setup_discriminator, setup_generator
 
         self.config = config
         self.ap = ap
         self.device = resolve_device(device)
-        self.net = GanNet(setup_generator(config), setup_discriminator(config)).to(self.device).eval()
+        model_d = setup_discriminator(config) if discriminator else None
+        self.net = GanNet(setup_generator(config), model_d).to(self.device).eval()
         self.gen_loss_cfg = GeneratorLossConfig(config)
         self.pqmf = None
         if getattr(config, "use_pqmf", False):
@@ -116,6 +119,8 @@ class GAN:
         if not parts["model_g"]:
             raise ValueError(f"no generator weights among {len(state)} tensors: not a GAN vocoder state dict?")
         self.model_g.load_state_dict(parts["model_g"], strict=strict)
+        if self.model_d is None:
+            return
         if set(self.model_d.state_dict()) <= set(parts["model_d"]):
             self.model_d.load_state_dict(parts["model_d"], strict=strict)
         else:
@@ -200,7 +205,7 @@ class GAN:
                                                  0))
 
     @staticmethod
-    def init_from_config(config, device=None, samples=None):
+    def init_from_config(config, device=None, samples=None, discriminator: bool = True):
         from tpu_tts_torch.audio import AudioProcessor
 
-        return GAN(config, ap=AudioProcessor.init_from_config(config), device=device)
+        return GAN(config, ap=AudioProcessor.init_from_config(config), device=device, discriminator=discriminator)
